@@ -1,0 +1,443 @@
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py       # every phase, one card
+
+Builds the hand-written CUDA kernels of ``sparsespatialsampling_torch`` from
+the sources in this checkout, holds each against its plain PyTorch version
+on the card, drives the port's main path (grid generation + export) through
+its public entry points, and checks what comes out.  Each phase prints one
+JSON line; a failing phase raises, and the script exits non-zero without
+the final line.  The last three lines are the kernel summary, the card's
+``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {"platform": "gpu", ...}}``.
+
+Phases:
+
+- ``env``: torch / CUDA versions and the card;
+- ``build``: compiles every ``csrc/*.cu`` (one ``nvcc`` each, in parallel);
+- ``kernel``: ``topk_smallest`` against its plain version at the 3D epoch
+  shape [36864, 864] k=26 and a 2D shape [20480, 576] k=8, with in-row
+  ties, whole-row ties and a row with fewer than k finite entries —
+  ``vals`` and ``sel`` must be bitwise equal; CUDA-event medians of the
+  kernel, the plain version and ``torch.topk`` (a yardstick the port never
+  calls) beside the memory bound;
+- ``grid3d``: the cylinder-wake cloud (500 000 points, seed 1) refined to
+  150 000 cells with a sphere obstacle refined to level 7, then 10
+  snapshots exported through ``ExportData.export`` and the HDF5 file read
+  back (where h5py is installed; else through ``ExportData.interpolate``,
+  the same interpolation without the write), and 2 000 cells checked
+  against a float64 k-d-tree IDW reference;
+- ``grid2d_metric``: a 250 000-point 2D channel cloud with a circular
+  obstacle in captured-metric mode (``min_metric=0.75``): the k=8 kernel
+  and the metric stopping rule;
+- ``cuda_vs_cpu``: one 60 000-point 3D grid-path case on the card and on
+  the CPU; the (level, centre) sets and iteration counts must be identical.
+
+The launch counters are set to 0 just before each main-path run and read
+just after it; every main-path run must have launched every kernel.  The
+largest kernel input each main-path run produced is held (a reference, not
+a copy) and, after the run, compared and timed again, so the reported times
+are at the shapes the main path gives the kernel.
+"""
+import importlib.util
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# the export's HDF5 write needs h5py; without it the smoke run checks the
+# field that ExportData.interpolate returns instead of the file
+HAVE_H5PY = importlib.util.find_spec("h5py") is not None
+# H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn`` in milliseconds."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def topk_bound(q: int, w: int, k: int):
+    """Least time for the selection: each input read once, each output
+    written once, against k passes of W compares per row at the f32 rate.
+    Returns ``(bound_ms, bound_by)``."""
+    t_bytes = (q * w * 4 + q * k * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = (q * w * k) / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def check_topk(x: torch.Tensor, k: int, timed: bool = True) -> dict:
+    """Kernel against its plain version on the card on the same input:
+    bitwise ``vals`` and ``sel`` required; CUDA-event times."""
+    from sparsespatialsampling_torch.ops import topk
+    vals, sel = topk.topk_smallest(x, k)
+    pvals, psel = topk.topk_smallest_plain(x, k)
+    torch.cuda.synchronize()
+    same_v = torch.equal(vals, pvals)
+    same_s = torch.equal(sel, psel)
+    finite = torch.isfinite(pvals)
+    err = float((vals[finite] - pvals[finite]).abs().max()) \
+        if finite.any() else 0.0
+    if not (same_v and same_s):
+        raise AssertionError(
+            f"topk_smallest kernel disagrees with its plain version at "
+            f"{list(x.shape)} k={k}: vals equal {same_v}, sel equal "
+            f"{same_s}, max |dv| {err}")
+    q, w = x.shape
+    res = {"shape": [q, w], "k": k, "bitwise_equal_plain": True,
+           "max_abs_err": err}
+    if timed:
+        bound, by = topk_bound(q, w, k)
+        res.update(
+            ms=cuda_ms(lambda: topk.topk_smallest(x, k)),
+            plain_ms=cuda_ms(lambda: topk.topk_smallest_plain(x, k), reps=3,
+                             warmup=1),
+            library_ms=cuda_ms(lambda: torch.topk(x, k, largest=False)),
+            bound_ms=bound, bound_by=by)
+    return res
+
+
+def tie_laden(q: int, w: int, k: int, seed: int) -> torch.Tensor:
+    """Seeded distance-like rows with in-row ties, whole-row ties and one
+    row with fewer than k finite entries."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, size=(q, w)).astype(np.float32)
+    x[:, ::7] = np.round(x[:, ::7], 2)          # many in-row ties
+    x[1, :] = 0.5                               # whole-row tie
+    x[2, :w // 2] = x[2, w // 2:]               # duplicated half-row
+    x[3, k // 2:] = np.inf                      # fewer than k finite
+    x[4, :] = np.float32(3e30)                  # all pad distances
+    return torch.from_numpy(x).cuda()
+
+
+def phase_kernel() -> dict:
+    out = {"phase": "kernel", "cases": []}
+    for q, w, k, seed in ((36864, 864, 26, 0), (20480, 576, 8, 1)):
+        out["cases"].append(check_topk(tie_laden(q, w, k, seed), k))
+    return out
+
+
+class KernelTap:
+    """Holds the largest input the selection kernel got during a main-path
+    run (wraps the module function the kNN calls).  It keeps a reference,
+    not a copy, so the run's walls carry no extra work: the input is a fresh
+    distance tensor that nothing writes to after the selection."""
+
+    def __init__(self):
+        from sparsespatialsampling_torch.ops import topk
+        self._topk = topk
+        self._orig = topk.topk_smallest
+        self.x, self.k = None, None
+
+    def __enter__(self):
+        def tapped(x, k):
+            if self.x is None or x.numel() > self.x.numel():
+                self.x, self.k = x, k
+            return self._orig(x, k)
+        self._topk.topk_smallest = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._topk.topk_smallest = self._orig
+
+
+def reset_counts() -> None:
+    from sparsespatialsampling_torch.ops import topk
+    topk.launches = 0
+
+
+def read_counts() -> dict:
+    from sparsespatialsampling_torch.ops import topk
+    return {"topk_smallest": topk.launches}
+
+
+def cylinder_wake_3d(n_points: int = 500_000, seed: int = 1):
+    """The cylinder-wake cloud of ``bench.py:291-301``."""
+    bounds = [[0.0, 0.0, 0.0], [2.2, 0.41, 0.41]]
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(bounds[0], bounds[1], size=(int(n_points * 1.01), 3))
+    r = np.linalg.norm(xyz[:, :2] - [0.2, 0.2], axis=1)
+    xyz = xyz[r > 0.05][:n_points]
+    x, y, z = xyz.T
+    metric = ((x > 0.2) * np.exp(-np.maximum(x - 0.25, 0) / 0.8)
+              * np.exp(-((y - 0.2) ** 2) / 0.02) + 0.01).astype(np.float64)
+    return xyz, metric, bounds
+
+
+def channel_wake_2d(n_points: int = 250_000, seed: int = 3):
+    """2D channel cloud with a circular hole and a wake metric (the clean
+    field of ``bench.py:341-368`` at 10x its point count)."""
+    bounds = [[0.0, 0.0], [2.2, 0.41]]
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(bounds[0], bounds[1], size=(int(n_points * 1.02), 2))
+    r = np.linalg.norm(xy - [0.2, 0.2], axis=1)
+    xy = xy[r > 0.05][:n_points]
+    x, y = xy.T
+    wake = ((x > 0.2) * np.exp(-np.maximum(x - 0.25, 0.0) / 0.6)
+            * (np.exp(-((y - 0.2) ** 2) / 0.01)
+               + 0.4 * np.cos(12.0 * (x - 0.25))
+               * np.exp(-((y - 0.2) ** 2) / 0.02)))
+    return xy, (np.abs(wake) + 0.02).astype(np.float64), bounds
+
+
+def grid_summary(s3, phase_t: dict) -> dict:
+    info = s3.data_final_mesh
+    st = info["epoch_stats"]
+    return {"n_cells": int(info["n_cells"]),
+            "iterations": int(info["iterations"]),
+            "captured_metric": float(info["metric_per_iter"][-1]),
+            "bad_cells_to_full_scan": int(st["n_bad_cells"]),
+            "epoch_queries": int(st["queries"]),
+            "epoch_passes": {"grid_or_main": int(st["n_calls_main"]),
+                             "full_scan_retry": int(st["n_calls_full"])},
+            "epoch_wall_s": float(st["wall_s"]),
+            "retry_wall_s": float(st["t_retry_s"]),
+            "max_level": int(info["max_level"]),
+            "wall_s": {"init": phase_t["init"],
+                       "uniform": float(info["t_uniform"]),
+                       "adaptive": float(info["t_adaptive"]),
+                       "geometry": (None if info["t_geometry"] is None
+                                    else float(info["t_geometry"])),
+                       "renumber": float(info["t_renumbering"]),
+                       "refine_total": phase_t["refine"],
+                       **({"export": phase_t["export"]}
+                          if "export" in phase_t else {})}}
+
+
+def check_export(tmp: str, name: str, xyz, snaps, s3, field,
+                 n_snap: int) -> dict:
+    """Read the HDF5 file back (where h5py is installed; else take the
+    ``[M, 1, S]`` field ``ExportData.interpolate`` returned) and hold 2 000
+    cells against a float64 k-d-tree IDW reference."""
+    from scipy.spatial import cKDTree
+    n_cells = s3.centers.shape[0]
+    if HAVE_H5PY:
+        from sparsespatialsampling_torch import Dataloader
+        loader = Dataloader(tmp, f"{name}.h5")
+        field = loader.load_snapshot("k")
+        if loader.faces.shape != (n_cells, 8) or loader.nodes.shape[1] != 3:
+            raise AssertionError("exported grid has the wrong shape")
+    else:
+        field = field[:, 0, :]
+    if field.shape != (n_cells, n_snap):
+        raise AssertionError(f"exported field shape {field.shape}, "
+                             f"expected {(n_cells, n_snap)}")
+    if not np.isfinite(field).all():
+        raise AssertionError("exported field holds non-finite values")
+    pick = np.random.default_rng(0).choice(n_cells, 2000, replace=False)
+    dist, idx = cKDTree(xyz).query(s3.centers[pick], k=26)
+    w = 1.0 / np.clip(dist, 1e-12, None)
+    w /= w.sum(axis=1, keepdims=True)
+    ref = np.einsum("qk,qks->qs", w, snaps[idx].astype(np.float64))
+    rel = np.abs(field[pick] - ref) / np.abs(ref).max()
+    if rel.max() > 1e-4:
+        raise AssertionError(f"exported field deviates from the float64 "
+                             f"IDW reference by {rel.max():.3e} (relative)")
+    return {"field_shape": list(field.shape),
+            "hdf5": ("written and read back" if HAVE_H5PY else
+                     "not written: h5py is not installed here"),
+            "ref_idw_max_rel_err": float(rel.max())}
+
+
+def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
+             **kw) -> tuple:
+    from sparsespatialsampling_torch import SparseSpatialSampling, ExportData
+    t = {}
+    t0 = time.perf_counter()
+    s3 = SparseSpatialSampling(pts, metric, geometries, save_path=tmp,
+                               save_name=name, device=device, **kw)
+    t["init"] = time.perf_counter() - t0
+    s3.execute_grid_generation()
+    t["refine"] = time.perf_counter() - t0
+    exp = field = None
+    if export is not None:
+        snaps, times = export
+        t1 = time.perf_counter()
+        exp = ExportData(s3, write_times=times, device=device)
+        if HAVE_H5PY:
+            exp.export(pts, snaps[:, None, :], "k",
+                       n_snapshots_total=len(times))
+        else:
+            field = exp.interpolate(pts, snaps[:, None, :])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t["export"] = time.perf_counter() - t1
+    return s3, exp, field, t
+
+
+def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
+                  export=None, **kw):
+    """One main-path run with the counters set to 0 just before it and read
+    just after; every kernel must have launched."""
+    with KernelTap() as tap:
+        reset_counts()
+        s3, exp, field, t = run_grid(tmp, name, pts, metric, geometries,
+                                     export, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    missing = [n for n, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"{phase}: kernels never launched on the main "
+                             f"path: {missing}")
+    return s3, exp, field, t, counts, tap
+
+
+def phase_grid3d(tmp: str) -> tuple:
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xyz, metric, bounds = cylinder_wake_3d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("hole", False, [0.2, 0.2, 0.2], 0.05,
+                                 refine=True, min_refinement_level=7)]
+    n_snap = 10
+    phases = np.linspace(0, 2 * np.pi, n_snap, endpoint=False)
+    snaps = (metric[:, None]
+             * (1 + 0.2 * np.sin(phases)[None, :])).astype(np.float32)
+    times = [f"{t:.4f}" for t in np.arange(n_snap) * 5e-4]
+    s3, exp, field, t, counts, tap = main_path_run(
+        "grid3d", tmp, "c3d", xyz, metric, geometries, export=(snaps, times),
+        uniform_levels=5, n_cells_max=150_000)
+    out = {"phase": "grid3d", "n_points": int(xyz.shape[0]),
+           **grid_summary(s3, t),
+           "export_fallback_rows": int(exp.timings["n_fallback"]),
+           "export_split_s": {key: exp.timings[key] for key in (
+               "t_weights", "t_metric", "t_kernel", "t_h5")},
+           "launches": counts,
+           **check_export(tmp, "c3d", xyz, snaps, s3, field, n_snap)}
+    out["kernel_at_main_path_shape"] = check_topk(tap.x, tap.k)
+    return out, counts, out["kernel_at_main_path_shape"]
+
+
+def phase_grid2d_metric(tmp: str) -> tuple:
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xy, metric, bounds = channel_wake_2d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
+                                 refine=True, min_refinement_level=9)]
+    s3, _, _, t, counts, tap = main_path_run(
+        "grid2d_metric", tmp, "c2d", xy, metric, geometries,
+        uniform_levels=5, min_metric=0.75)
+    out = {"phase": "grid2d_metric", "n_points": int(xy.shape[0]),
+           **grid_summary(s3, t), "launches": counts}
+    out["kernel_at_main_path_shape"] = check_topk(tap.x, tap.k)
+    return out, counts
+
+
+def phase_cuda_vs_cpu(tmp: str) -> dict:
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xyz, metric, bounds = cylinder_wake_3d(60_000, seed=2)
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("hole", False, [0.2, 0.2, 0.2], 0.05)]
+    keys, out = {}, {"phase": "cuda_vs_cpu", "n_points": 60_000}
+    for dev in ("cuda", "cpu"):
+        s3, _, _, t = run_grid(tmp, f"cmp_{dev}", xyz, metric, geometries,
+                            device=dev, uniform_levels=4, n_cells_max=8000)
+        lv = np.asarray(s3.levels).ravel()
+        order = np.lexsort((lv,) + tuple(s3.centers.T))
+        keys[dev] = (lv[order], s3.centers[order],
+                     s3.data_final_mesh["iterations"],
+                     np.asarray(s3.data_final_mesh["metric_per_iter"]))
+        out[dev] = {"n_cells": int(lv.size), "iterations": keys[dev][2],
+                    "bad_cells_to_full_scan":
+                        int(s3.data_final_mesh["epoch_stats"]["n_bad_cells"]),
+                    "refine_s": t["refine"]}
+    (la, ca, ia, ma), (lb, cb, ib, mb) = keys["cuda"], keys["cpu"]
+    same = (la.shape == lb.shape and np.array_equal(la, lb)
+            and np.array_equal(ca, cb) and ia == ib)
+    if not same:
+        raise AssertionError(f"cuda and cpu grids differ: cells "
+                             f"{la.size} vs {lb.size}, iterations {ia} vs "
+                             f"{ib}")
+    out["identical"] = True
+    out["metric_trace_max_abs_diff"] = float(np.abs(ma - mb).max())
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available — this script runs the "
+              "port on the card and has no CPU mode.", file=sys.stderr)
+        return 2
+    from sparsespatialsampling_torch import _build
+
+    smi = nvidia_smi_line()
+    emit({"phase": "env", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(), "nvidia_smi": smi})
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": sorted(logs),
+          "ptxas": {n: [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for n, log in logs.items()}})
+
+    tmp = tempfile.mkdtemp(prefix="s3_smoke_")
+    try:
+        kernel = phase_kernel()
+        emit(kernel)
+        grid3d, counts3d, main3d = phase_grid3d(tmp)
+        emit(grid3d)
+        grid2d, counts2d = phase_grid2d_metric(tmp)
+        emit(grid2d)
+        emit(phase_cuda_vs_cpu(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # every number below was measured in this run; the times are those at
+    # the largest input the grid3d main path gave the kernel
+    checks = kernel["cases"] + [main3d, grid2d["kernel_at_main_path_shape"]]
+    epoch = kernel["cases"][0]
+    emit({"kernels": [{
+        "name": "topk_smallest", "route": "cuda",
+        "source": "sparsespatialsampling_torch/csrc/topk_smallest.cu",
+        "replaces": "sparsespatialsampling_tpu/ops/pallas_topk.py:62",
+        "launches": counts3d["topk_smallest"],
+        "launches_grid2d_metric": counts2d["topk_smallest"],
+        "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        **{key: main3d[key] for key in (
+            "shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "epoch_shape": {key: epoch[key] for key in (
+            "shape", "k", "ms", "plain_ms", "library_ms", "bound_ms")}}]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""sparsespatialsampling_torch — the PyTorch/CUDA port of S³ (sparse spatial
+sampling) for NVIDIA Hopper.
+
+Metric-driven adaptive quadtree/octree grid generation for CFD data
+reduction, snapshot interpolation and HDF5/XDMF export, with the public API
+and file schema of the JAX package it is ported from (the reference,
+kept beside it in the repository).  The numerics run on a torch device (``device=None`` means the
+card); the dilated-grid kNN selects through a hand-written CUDA kernel
+(``csrc/topk_smallest.cu``).  This package imports no JAX.
+"""
+from .version import __version__
+from .sparse_spatial_sampling import SparseSpatialSampling, load_s_cube
+from .export import ExportData, Fields
+from .io import Dataloader, Datawriter, XDMFWriter
+from .geometry import GeometryObject, CubeGeometry, SphereGeometry
+
+__all__ = [
+    "__version__",
+    "SparseSpatialSampling", "load_s_cube",
+    "ExportData", "Fields",
+    "Dataloader", "Datawriter", "XDMFWriter",
+    "GeometryObject", "CubeGeometry", "SphereGeometry",
+]

@@ -1,0 +1,303 @@
+"""Interpolate CFD fields onto the S³ grid and export them to HDF5/XDMF.
+
+Port of the JAX package's ``export.py`` (reference ``ExportData``,
+``sparseSpatialSampling/export.py:40-319``): the kNN inverse-distance
+weights of the cell centres come from :class:`~.ops.knn.KNNIndex` on the
+device (the grid path selects through the ``topk_smallest`` kernel), the
+snapshots are contracted with them on the device
+(:func:`~.ops.interpolate.interpolate_data`), and the HDF5/XDMF files have
+the JAX package's (and the reference's) schema.
+"""
+import logging
+from os import path
+from time import time
+from typing import Union
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .io.const import GRID, CONST, FACES, CENTERS, VERTICES, DATA
+from .io.data import Datawriter
+from .ops.interpolate import interpolate_data, interpolate_numpy
+from .ops.knn import KNNIndex
+
+logger = logging.getLogger(__name__)
+
+
+class Fields:
+    """Interpolated field values at cell centres and vertices (reference
+    ``Fields``, ``export.py:26-37``)."""
+
+    def __init__(self, centers=None, vertices=None):
+        self.centers = centers
+        self.vertices = vertices
+
+
+class ExportData:
+    """Interpolate original snapshots onto the S³ grid and write HDF5/XDMF."""
+
+    def __init__(self, s_cube, write_new_file_for_each_field: bool = False,
+                 n_jobs: int = None, n_neighbors: int = None,
+                 interpolate_at_vertices: bool = False,
+                 write_times: Union[list, str] = None,
+                 append_existing: bool = False, device=None):
+        """
+        :param s_cube: executed :class:`SparseSpatialSampling` object
+        :param write_new_file_for_each_field: one HDF5 file per field
+            (disabled when ``append_existing=True``)
+        :param n_jobs: accepted for reference drop-in use; ignored
+        :param n_neighbors: k of the interpolation kNN (default 8 in 2D,
+            26 in 3D — reference ``export.py:117-118``)
+        :param interpolate_at_vertices: also interpolate at cell vertices
+        :param write_times: time-step labels of the snapshots to export
+        :param append_existing: append fields to an existing HDF5 file (the
+            grids must be identical; consistency is not checked)
+        :param device: torch device of the kNN and the contraction; None
+            means ``cuda`` (raises when there is no card)
+        """
+        self.device = resolve_device(device)
+        self._interpolate_at_vertices = interpolate_at_vertices
+        self._new_file = write_new_file_for_each_field
+        self.n_dimensions = s_cube.n_dimensions
+        self._face_id = np.asarray(s_cube.faces)
+        self._centers = np.asarray(s_cube.centers)
+        self._vertices = np.asarray(s_cube.vertices)
+        self._levels = np.asarray(s_cube.levels)
+        self._metric = np.asarray(s_cube.metric)
+        self._size_initial_cell = s_cube.size_initial_cell
+        self._save_dir = s_cube.save_path
+        self._save_name = s_cube.save_name
+        self._grid_name = s_cube.grid_name
+
+        if write_times is not None:
+            self._write_times = (write_times if isinstance(write_times, list)
+                                 else [write_times])
+        else:
+            self._write_times = None
+            logger.warning("No 'write_times' given yet — assign the "
+                           "'write_times' property before the first "
+                           "export() call.")
+
+        self._interpolated_fields = Fields()
+        self._field_name = None
+        self._datawriter = None
+        self._snapshot_counter = 0
+        self._initialized_hdf5 = append_existing
+        self._interpolated_metric = append_existing
+        self._initialized_weights = False
+        self._n_snapshots_total = None
+        self._t_start = time()
+
+        if append_existing:
+            logger.info(f"Opening existing file "
+                        f"{path.join(self._save_dir, self._save_name)}.h5 "
+                        f"to append additional fields.")
+            if self._new_file:
+                logger.warning("'append_existing=True' targets one shared "
+                               "file, so 'write_new_file_for_each_field' is "
+                               "being turned off.")
+                self._new_file = False
+
+        self._n_neighbors = (n_neighbors if n_neighbors is not None
+                             else (8 if self.n_dimensions == 2 else 26))
+        # the engine's index over the same cloud, if the caller kept it
+        self._engine_knn = getattr(s_cube, "_knn_index", None)
+        self._knn = None
+        self._coord_shape = None
+        self._w_centers = self._idx_centers = None
+        self._w_vertices = self._idx_vertices = None
+        # cumulative seconds across export() calls, and the exact-fallback
+        # rows of the weight queries
+        self.timings = {"t_weights": 0.0, "t_metric": 0.0, "t_kernel": 0.0,
+                        "t_h5": 0.0, "n_fallback": 0}
+
+    def export(self, coordinates, data, field_name: str,
+               n_snapshots_total: int = None) -> None:
+        """Interpolate CFD data onto the S³ grid (:meth:`interpolate`) and
+        write it to HDF5 (and XDMF once all snapshots of the field are
+        written).
+
+        :param coordinates: coordinates of the original CFD grid ``[N, d]``
+        :param data: field data ``[N, C, S]`` (scalar fields: C = 1); ``S``
+            may be all snapshots, a batch, or a single snapshot
+        :param field_name: name of the exported field (e.g. ``'p'``)
+        :param n_snapshots_total: total number of snapshots to export across
+            all batches; if None, ``data`` is assumed complete
+        """
+        if self._write_times is None:
+            raise ValueError(
+                "No write times are set for this export: supply them via the "
+                "'write_times' constructor argument or assign the "
+                "'write_times' property before exporting fields.")
+        self._field_name = field_name
+        if self._snapshot_counter == 0:
+            logger.info(f"Interpolating field {field_name} onto the S3 grid.")
+        n_batch = self.interpolate(coordinates, data).shape[-1]
+        if self._snapshot_counter == 0:
+            self._n_snapshots_total = (n_snapshots_total
+                                       if n_snapshots_total is not None
+                                       else n_batch)
+        self._snapshot_counter += n_batch
+        t0 = time()
+        self._write_data_to_hdf5()
+        self.timings["t_h5"] += time() - t0
+
+    @property
+    def write_times(self) -> list:
+        return self._write_times
+
+    @write_times.setter
+    def write_times(self, value: Union[list, str]) -> None:
+        self._write_times = value if isinstance(value, list) else [value]
+
+    # ------------------------------------------------------------------ #
+    # interpolation                                                      #
+    # ------------------------------------------------------------------ #
+    def _build_knn_cache(self, coordinates) -> None:
+        """kNN inverse-distance weights of the cell centres (and optionally
+        vertices) in the original grid, on the device (reference
+        ``_build_knn_cache``, ``export.py:403-444``); rebuilt only when the
+        CFD grid changes shape."""
+        coordinates = np.asarray(coordinates)
+        if (self._coord_shape is not None
+                and coordinates.shape != self._coord_shape):
+            self._knn = None
+        self._coord_shape = coordinates.shape
+        if self._knn is None:
+            pts = coordinates.reshape(-1, self.n_dimensions)
+            reuse = self._engine_knn
+            probe = [0, pts.shape[0] // 2, -1]
+            if (isinstance(reuse, KNNIndex) and reuse.device == self.device
+                    and reuse.n_points == pts.shape[0]
+                    and reuse.n_dim == pts.shape[1]
+                    and np.allclose(pts[probe] - reuse._shift,
+                                    reuse._points_host[probe], atol=1e-6)):
+                self._knn = reuse   # the engine indexed the same cloud
+            else:
+                self._knn = KNNIndex(pts, device=self.device)
+        self._w_centers, self._idx_centers = self._knn.weights_device(
+            self._centers, self._n_neighbors)
+        self.timings["n_fallback"] += self._knn.last_fallback
+        if self._interpolate_at_vertices:
+            self._w_vertices, self._idx_vertices = self._knn.weights_device(
+                self._vertices, self._n_neighbors)
+            self.timings["n_fallback"] += self._knn.last_fallback
+        self._initialized_weights = True
+
+    def interpolate(self, coordinates, data) -> np.ndarray:
+        """Interpolate CFD data onto the cell centres (and vertices, if
+        asked for) without writing anything: the first half of
+        :meth:`export`.  Builds the weight cache on the first call and
+        interpolates the refinement metric once (reference ``_fit_data``,
+        ``export.py:169-231``).
+
+        :param coordinates: coordinates of the original CFD grid ``[N, d]``
+        :param data: field data ``[N, C, S]`` (or ``[N, S]`` for a scalar)
+        :return: the field at the cell centres, ``[M, C, S]`` float32
+        """
+        data = np.asarray(data)
+        if data.ndim < 2:
+            raise ValueError(
+                f"'data' is {data.ndim}-dimensional but must be 3-D: "
+                "[N_cells, N_components, N_snapshots] (use N_components=1 "
+                "for scalar fields).")
+        if data.ndim == 2:
+            logger.warning("2-D 'data' given — treating it as a scalar "
+                           "field and inserting a component axis: "
+                           "[N_cells, N_snapshots] -> "
+                           "[N_cells, 1, N_snapshots].")
+            data = data[:, None, :]
+
+        if not self._initialized_weights:
+            t0 = time()
+            self._build_knn_cache(coordinates)
+            self.timings["t_weights"] += time() - t0
+
+        if not self._interpolated_metric:
+            t0 = time()
+            if self.device.type == "cuda":
+                # on the card in f32, as the JAX package's device-resident
+                # weight cache does: no [M, k] readback
+                metric = torch.as_tensor(self._metric[:, None, None],
+                                         dtype=torch.float32,
+                                         device=self.device)
+                self._metric = interpolate_data(
+                    self._w_centers, self._idx_centers,
+                    metric)[:, 0, 0].cpu().numpy()
+            else:
+                # float64 on the host, as the JAX package's host cache does
+                w = self._w_centers.numpy()
+                self._metric = (w * self._metric[self._idx_centers.numpy()]
+                                ).sum(axis=1)
+            self._interpolated_metric = True
+            self.timings["t_metric"] += time() - t0
+
+        t0 = time()
+        self._interpolated_fields.centers = interpolate_numpy(
+            self._w_centers, self._idx_centers, data, self.device)
+        if self._interpolate_at_vertices:
+            self._interpolated_fields.vertices = interpolate_numpy(
+                self._w_vertices, self._idx_vertices, data, self.device)
+        self.timings["t_kernel"] += time() - t0
+        return self._interpolated_fields.centers
+
+    # ------------------------------------------------------------------ #
+    # HDF5 output                                                        #
+    # ------------------------------------------------------------------ #
+    def _write_data_to_hdf5(self) -> None:
+        """Write the grid (first call) and the interpolated snapshots; write
+        the XDMF file once all snapshots of the field are in (reference
+        ``_write_data_to_hdf5``, ``export.py:233-319``)."""
+        if not self._initialized_hdf5:
+            logger.info(f"Flushing field {self._field_name} to HDF5.")
+            file_name = (f"{self._save_name}_{self._field_name}.h5"
+                         if self._new_file else f"{self._save_name}.h5")
+            self._datawriter = Datawriter(self._save_dir, file_name)
+            self._datawriter.write_data(FACES, group=GRID, data=self._face_id)
+            self._datawriter.write_data(VERTICES, group=GRID,
+                                        data=self._vertices)
+            self._datawriter.write_data(CENTERS, group=GRID,
+                                        data=self._centers)
+            self._datawriter.write_data("levels", group=CONST,
+                                        data=self._levels)
+            self._datawriter.write_data("metric", group=CONST,
+                                        data=self._metric)
+            self._datawriter.write_data("size_initial_cell", group=CONST,
+                                        data=self._size_initial_cell)
+            self._initialized_hdf5 = True
+            self._levels = None
+            self._metric = None
+            self._size_initial_cell = None
+        elif not self._new_file and self._datawriter is None:
+            logger.info(f"Flushing field {self._field_name} to HDF5.")
+            self._datawriter = Datawriter(self._save_dir,
+                                          f"{self._save_name}.h5", mode="a")
+        else:
+            self._datawriter.mode = "a"
+
+        centers = self._interpolated_fields.centers
+        t_start = self._snapshot_counter - centers.shape[-1]
+        t_end = self._snapshot_counter
+        for i, t in enumerate(self._write_times[t_start:t_end]):
+            sel = (slice(None), 0, i) if centers.shape[1] == 1 else (
+                slice(None), slice(None), i)
+            self._datawriter.write_data(f"{self._field_name}_center",
+                                        group=DATA, time_step=str(t),
+                                        data=centers[sel])
+            if self._interpolate_at_vertices:
+                self._datawriter.write_data(
+                    f"{self._field_name}_vertices", group=DATA,
+                    time_step=str(t),
+                    data=self._interpolated_fields.vertices[sel])
+
+        if self._snapshot_counter == self._n_snapshots_total:
+            self._datawriter.close()
+            self._datawriter.write_xdmf_file()
+            self._interpolated_fields = Fields()
+            self._snapshot_counter = 0
+            if self._new_file:
+                self._initialized_hdf5 = False
+            logger.info(f"Field {self._field_name} exported after "
+                        f"{round(time() - self._t_start, 3)}s.")
+            self._t_start = time()

@@ -1,0 +1,697 @@
+"""Exact k-nearest-neighbour search and inverse-distance weights, in torch.
+
+Port of the JAX package's ``ops/knn.py``.  Two paths answer a query, and
+both emit the canonical ascending ``(distance², index)`` order, so their
+results are bitwise equal wherever both are exact:
+
+- **Full scan** (:func:`_search`): every point is scored by
+  ``|p|² − 2 q·p``, the ``k + 8`` best by score are kept (ties to the lower
+  index, through a stable sort), then re-ranked by the plain f32 delta-sum
+  distance and sorted canonically.  The score's dot product is written as
+  ``d`` elementwise products, so no matrix unit (and no TF32 rounding) is
+  involved, and the result is the same on every device.
+- **Dilated bucket grid** (``_build_grid`` / :func:`_dilated_topk`): each
+  grid cell stores its whole 3^d neighbourhood as one row, sorted by
+  candidate index and compacted to ``keep_w`` columns; a query scores the
+  row of its own cell by the plain delta-sum and selects with the
+  hand-written ``topk_smallest`` kernel (:mod:`.topk`), whose
+  lowest-column tie rule is the canonical order on these rows.  A row is
+  accepted only when its k-th distance lies inside the covered
+  neighbourhood and no overflowing cell's box reaches its k-ball; every
+  other row is re-answered by the full scan.
+
+Sums over the coordinate axis and over the k neighbours run in a fixed
+order (:func:`_sqsum`, :func:`_rowsum`): the distances then equal XLA's
+``jnp.sum(dd * dd, axis=-1)`` on the CPU bit for bit (a chain of fused
+multiply-adds), and the CPU and the card give the same numbers.
+
+XLA clamps out-of-bounds gathers and drops out-of-bounds scatters; torch
+raises instead, so the pad index ``n_points`` gathers from an explicit zero
+pad row of the values, and the grid fill masks the members beyond a cell's
+capacity.
+"""
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import morton
+from . import topk as _topk
+
+DEFAULT_TILE_N = 16384
+DEFAULT_TILE_Q = 1024
+# rows of the dilated-layout build processed at once (bounds the
+# [block, 3^d·C, d] sort transients)
+_DILATE_BLOCK = 8192
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a·b + c`` with one rounding, as a fused multiply-add gives it:
+    the product of two f32 values is exact in f64, so only the f64 sum and
+    the final f32 cast round (the two roundings disagree with one only when
+    the f64 sum lands exactly on an f32 midpoint, about 2^-29 of cases)."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root: torch's vectorised f32 ``sqrt`` on
+    the CPU is not (about 0.5 % of results sit one ulp off), while the f64
+    root rounded to f32 is exact on every device."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _sqsum(delta: torch.Tensor) -> torch.Tensor:
+    """``Σ_a delta[..., a]²`` in axis order, each term after the first
+    added by a fused multiply-add: ``fma(d2, d2, fma(d1, d1, d0·d0))`` is
+    what XLA's CPU backend makes of ``jnp.sum(dd * dd, axis=-1)``, so the
+    port's distances equal the JAX package's bit for bit, on every
+    device."""
+    d0 = delta[..., 0]
+    out = d0 * d0
+    for a in range(1, delta.shape[-1]):
+        out = _fma(delta[..., a], delta[..., a], out)
+    return out
+
+
+def _rowsum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right (the same order on every
+    device)."""
+    out = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        out = out + x[..., j]
+    return out
+
+
+def _weighted_sum(w: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``Σ_k w[q, k] · vals[q, k, ...]`` left to right over k."""
+    def term(j):
+        wj = w[:, j]
+        return wj.reshape(wj.shape + (1,) * (vals.dim() - 2)) * vals[:, j]
+    out = term(0)
+    for j in range(1, w.shape[1]):
+        out = out + term(j)
+    return out
+
+
+def _sort_neighbors(sq: torch.Tensor, idx: torch.Tensor):
+    """Canonical neighbour order: ascending ``(sq, idx)`` lexicographic
+    (two stable sorts, minor key first)."""
+    idx_s, o1 = torch.sort(idx, dim=1, stable=True)
+    sq_s, o2 = torch.sort(torch.gather(sq, 1, o1), dim=1, stable=True)
+    return sq_s, torch.gather(idx_s, 1, o2)
+
+
+def _idw(sq: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normalised inverse-distance weights from squared distances
+    (``w = 1 / clamp(dist, 1e-12)``, reference ``export.py:428-429``)."""
+    dists = _sqrt(torch.clamp_min(sq, 0.0))
+    w = 1.0 / torch.clamp_min(dists, eps)
+    return w / _rowsum(w)[:, None]
+
+
+def _search(queries, points, points_sq, k: int, tile_n: int, tile_q: int):
+    """Exact top-k of ``queries [Q, d]`` over ``points [N, d]`` (N a multiple
+    of ``tile_n``; pad rows carry ``points_sq = +inf``).  Returns
+    ``(sq [Q, k] f32, idx [Q, k] int64)`` in canonical order."""
+    n, d = points.shape
+    kk = min(k + 8, n)
+    sq_out, idx_out = [], []
+    for lo in range(0, queries.shape[0], tile_q):
+        q = queries[lo:lo + tile_q]
+        cand_s, cand_i = [], []
+        for t0 in range(0, n, tile_n):
+            p = points[t0:t0 + tile_n]
+            dot = q[:, None, 0] * p[None, :, 0]
+            for a in range(1, d):
+                dot = dot + q[:, None, a] * p[None, :, a]
+            # ranking score |p|² - 2 q·p, monotone in the distance per query
+            score = points_sq[None, t0:t0 + tile_n] - 2.0 * dot
+            s, o = torch.sort(score, dim=1, stable=True)
+            cand_s.append(s[:, :kk])
+            cand_i.append(o[:, :kk] + t0)
+        if len(cand_s) > 1:
+            # tiles in ascending order: equal scores keep the lower index
+            s, o = torch.sort(torch.cat(cand_s, dim=1), dim=1, stable=True)
+            best = torch.gather(torch.cat(cand_i, dim=1), 1, o[:, :kk])
+        else:
+            best = cand_i[0]
+        # exact distances of the widened set, canonical re-rank, keep k
+        sq = _sqsum(q[:, None, :] - points[best])
+        sq, best = _sort_neighbors(sq, best)
+        sq_out.append(sq[:, :k])
+        idx_out.append(best[:, :k])
+    if not sq_out:
+        return (torch.empty((0, k), dtype=points.dtype, device=points.device),
+                torch.empty((0, k), dtype=torch.int64, device=points.device))
+    return torch.cat(sq_out), torch.cat(idx_out)
+
+
+# ---------------------------------------------------------------------- #
+# bucket grid: host plan, device layout                                  #
+# ---------------------------------------------------------------------- #
+def _neighbor_offsets(d: int, radius: int = 1) -> np.ndarray:
+    """All (2r+1)^d offsets in {-r..r}^d (the query cell's neighbourhood)."""
+    rng = np.arange(-radius, radius + 1)
+    return np.stack(np.meshgrid(*([rng] * d), indexing="ij"),
+                    axis=-1).reshape(-1, d).astype(np.int32)
+
+
+def _plan_grid(points: np.ndarray, n_points: int, occupancy: int,
+               capacity: int, shrink_target: int = 32) -> dict:
+    """Host bucket-grid plan over a (centred, Morton-sorted) point cloud.
+
+    Chooses the cell size ``h`` (≈ (occupancy/density)^(1/d), grown to a
+    ~8·N storage cap, then shrunk until no cell exceeds ``shrink_target``
+    members while the budget allows) and the per-cell capacity ``C`` (the
+    pow2 covering the largest occupancy when that fits, else the 99.9th
+    percentile, the rest overflowing into the exact fallback).  Returns
+    numpy arrays only; member indices reference ``points``' row order."""
+    d = points.shape[1]
+    lo = points.min(axis=0)
+    hi = points.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-30)
+    density = n_points / float(np.prod(extent))
+    h = (occupancy / density) ** (1.0 / d)
+
+    def build_cells(h_val):
+        dims_v = np.maximum(np.ceil(extent / h_val).astype(np.int64), 1)
+        cc = np.clip(((points - lo) / h_val).astype(np.int64), 0,
+                     dims_v - 1)
+        flat_v = cc[:, 0]
+        for ax in range(1, d):
+            flat_v = flat_v * dims_v[ax] + cc[:, ax]
+        counts_v = np.bincount(flat_v, minlength=int(np.prod(dims_v)))
+        return dims_v, flat_v, counts_v
+
+    store_c = min(capacity, 2 * shrink_target)
+
+    def storage_ok(h_val):
+        dims_v = np.maximum(np.ceil(extent / h_val).astype(np.int64), 1)
+        return np.prod(dims_v) * store_c <= 8 * n_points + 4096
+
+    while not storage_ok(h):
+        h *= 1.26
+    dims, flat, counts = build_cells(h)
+    for _ in range(8):
+        if counts.max() <= shrink_target or not storage_ok(h / 1.15):
+            break
+        h /= 1.15
+        dims, flat, counts = build_cells(h)
+    n_cells = int(np.prod(dims))
+
+    maxc = int(counts.max())
+    if maxc <= capacity:
+        C = max(16, 1 << int(max(maxc, 2) - 1).bit_length())
+    else:
+        occupied = counts[counts > 0]
+        c999 = int(np.percentile(occupied, 99.9)) if occupied.size else 1
+        C = 1 << int(max(c999, 2, occupancy) - 1).bit_length()
+        C = int(min(capacity, max(16, C)))
+    overflow = np.zeros(n_cells + 1, dtype=bool)
+    overflow[:n_cells] = counts > C
+    return {"h": float(h), "C": C, "n_cells": n_cells, "origin": lo,
+            "dims": dims, "overflow": overflow, "counts": counts,
+            "flat_ids": flat}
+
+
+def _grid_neighbor_table(dims: np.ndarray, n_cells: int) -> np.ndarray:
+    """``[n_cells+1, 3^d]`` int64: each cell's 3^d neighbourhood as flat
+    cell ids; out-of-range neighbours and the sentinel row map to the
+    all-pad sentinel row ``n_cells``."""
+    d = len(dims)
+    coords = np.stack(np.unravel_index(
+        np.arange(n_cells, dtype=np.int64), dims), axis=1)
+    strides = np.ones(d, dtype=np.int64)
+    for ax in range(d - 2, -1, -1):
+        strides[ax] = strides[ax + 1] * dims[ax + 1]
+    base = coords @ strides
+    offsets = _neighbor_offsets(d)
+    out = np.empty((n_cells + 1, 3 ** d), dtype=np.int64)
+    out[n_cells] = n_cells
+    for j, off in enumerate(offsets):
+        valid = np.ones(n_cells, dtype=bool)
+        for ax in range(d):
+            if off[ax]:
+                c = coords[:, ax] + int(off[ax])
+                valid &= (c >= 0) & (c < dims[ax])
+        out[:n_cells, j] = np.where(valid, base + int((off * strides).sum()),
+                                    n_cells)
+    return out
+
+
+def _max_dilated_occupancy(counts: np.ndarray, dims, C: int) -> int:
+    """Exact largest number of real (non-pad) candidates in any 3^d
+    dilated row, from the capped per-cell member counts."""
+    dims = tuple(int(x) for x in dims)
+    cg = np.minimum(counts, C).reshape(dims)
+    d = len(dims)
+    cgp = np.pad(cg, [(1, 1)] * d)
+    acc = np.zeros_like(cg)
+    for off in np.ndindex(*(3,) * d):
+        acc += cgp[tuple(slice(o, o + s) for o, s in zip(off, dims))]
+    return int(acc.max()) if acc.size else 0
+
+
+def _fill_from_flat(flat: torch.Tensor):
+    """Fill triplet ``(cells, pos, order)`` from per-point flat cell ids:
+    points grouped by cell (stable), ``pos`` = rank inside the cell."""
+    n = flat.shape[0]
+    iota = torch.arange(n, device=flat.device)
+    flat_s, order = torch.sort(flat, stable=True)
+    is_start = torch.ones(n, dtype=torch.bool, device=flat.device)
+    is_start[1:] = flat_s[1:] != flat_s[:-1]
+    seg_start = torch.cummax(torch.where(is_start, iota, 0), dim=0).values
+    return flat_s, iota - seg_start, order
+
+
+def _cell_list(cells, pos, order, n_rows: int, C: int, pad_idx: int):
+    """Blocked member-index layout ``[n_rows, C]`` int32 (pad slots hold
+    ``pad_idx``); members past the capacity are masked out, which is what
+    XLA's dropped out-of-bounds scatter did."""
+    out = torch.full((n_rows, C), pad_idx, dtype=torch.int32,
+                     device=cells.device)
+    keep = pos < C
+    out[cells[keep], pos[keep]] = order[keep].to(torch.int32)
+    return out
+
+
+def _dilate_sorted(cell_pts, cell_list, nb, keep: int):
+    """Dilated layout: each cell's 3^d neighbourhood rows concatenated,
+    stably sorted by candidate index (pads, index ``n_points``, last) and
+    compacted to ``keep`` columns.  Returns ``(dil_pts [n_rows, keep·d]
+    f32, dil_cand [n_rows, keep] int32)``."""
+    n_rows, _, d = cell_pts.shape
+    out_pts = torch.empty((n_rows, keep * d), dtype=cell_pts.dtype,
+                          device=cell_pts.device)
+    out_cand = torch.empty((n_rows, keep), dtype=torch.int32,
+                           device=cell_pts.device)
+    for s in range(0, n_rows, _DILATE_BLOCK):
+        rows = nb[s:s + _DILATE_BLOCK]
+        b = rows.shape[0]
+        pts_u = cell_pts[rows].reshape(b, -1, d)
+        cand_u = cell_list[rows].reshape(b, -1)
+        cand_s, o = torch.sort(cand_u, dim=1, stable=True)
+        pts_s = torch.gather(pts_u, 1, o[:, :keep, None].expand(-1, -1, d))
+        out_pts[s:s + b] = pts_s.reshape(b, keep * d)
+        out_cand[s:s + b] = cand_s[:, :keep]
+    return out_pts, out_cand
+
+
+# ---------------------------------------------------------------------- #
+# grid query                                                             #
+# ---------------------------------------------------------------------- #
+def _covered_margin_sq(t, cc, dims, inv_h, radius: int):
+    """Squared exactness margin of the covered neighbourhood box, aware of
+    the grid boundary (a face on the boundary imposes no constraint, and
+    an anchor outside the bbox earns the cap-shaped allowance of the JAX
+    package's ``_covered_margin_sq``).  Capped at 9e28, below the
+    1e30-scale squared distances of the 1e15 pad slots, so a row whose
+    top-k ran out of real candidates is always rejected."""
+    h = 1.0 / inv_h
+    out = torch.clamp_min(torch.maximum(t - dims, -t), 0.0) * h      # [Q, d]
+    out_sq = out * out
+    oth = _rowsum(out_sq)[:, None] - out_sq                          # [Q, d]
+    dlo = t - torch.clamp_min(cc - radius, 0)
+    dhi = torch.minimum(cc + radius + 1, dims) - t
+    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
+    dlo = torch.where(cc - radius <= 0, inf, dlo)
+    dhi = torch.where(cc + radius + 1 >= dims, inf, dhi)
+    face = torch.minimum(dlo, dhi) * h
+    margin_sq = ((face * face + oth) * (1.0 - 1e-4)).min(dim=1).values
+    return torch.clamp_max(margin_sq, 9e28)
+
+
+def _grid_query_margin(queries, origin, inv_h, dims):
+    """Flat id of each query's (clamped) home cell and its exactness
+    margin; queries outside the bbox map to the nearest boundary cell."""
+    d = queries.shape[1]
+    t = (queries - origin) * inv_h
+    cc = torch.minimum(torch.clamp_min(torch.floor(t).long(), 0),
+                       dims[None, :] - 1)
+    margin_sq = _covered_margin_sq(t, cc, dims[None, :], inv_h, radius=1)
+    flat = cc[:, 0]
+    for ax in range(1, d):
+        flat = flat * dims[ax] + cc[:, ax]
+    return flat, margin_sq
+
+
+def _overflow_contaminated(queries, ovf_nb, sq_max, origin, inv_h, dims,
+                           radius: int = 1):
+    """True where an OVERFLOWING neighbourhood cell's box intersects the
+    query's k-ball (members beyond a cell's capacity can only live inside
+    that box).  ``ovf_nb [Q, R]`` f32 0/1 flags in `_neighbor_offsets`
+    order; the home cell is clamped to the grid like the flags' boxes."""
+    d = queries.shape[1]
+    offs = torch.from_numpy(_neighbor_offsets(d, radius).astype(
+        np.float32)).to(queries.device)
+    h = 1.0 / inv_h
+    hi = dims.to(queries.dtype) - 1.0
+    cc = torch.minimum(torch.clamp_min(
+        torch.floor((queries - origin) * inv_h), 0.0), hi)
+    lo_box = (cc[:, None, :] + offs[None, :, :]) * h + origin
+    q3 = queries[:, None, :]
+    gap = torch.clamp_min(torch.maximum(lo_box - q3, q3 - (lo_box + h)), 0.0)
+    dist2 = _sqsum(gap)                                               # [Q, R]
+    return ((ovf_nb > 0.5) & (dist2 <= sq_max[:, None])).any(dim=1)
+
+
+def _dilated_select(queries, dil_pts, dil_cand, flat, k: int):
+    """Plain f32 delta-sum distances to the candidates of dilated rows
+    ``flat`` and the canonical top-k through the selection kernel.
+    Returns ``(sq [Q, k] f32, idx [Q, k] int64, sel [Q, k] int32)``."""
+    q, d = queries.shape
+    g3 = dil_pts[flat].reshape(q, -1, d)                  # [Q, keep, d]
+    sq = _sqsum(queries[:, None, :] - g3)                 # [Q, keep]
+    sq_k, sel = _topk.topk_smallest(sq, k)
+    idx = dil_cand[flat[:, None], sel.long()].long()      # [Q, k] pointwise
+    return sq_k, idx, sel
+
+
+def _dilated_topk(queries, grid: dict, k: int):
+    """Dilated-grid kNN of ``queries [Q, d]`` (centred f32): ``(sq, idx, sel,
+    ok, flat)``, canonical order; ``ok`` marks rows provably exact."""
+    origin, inv_h, dims = grid["origin"], grid["inv_h"], grid["dims"]
+    flat, margin_sq = _grid_query_margin(queries, origin, inv_h, dims)
+    sq, idx, sel = _dilated_select(queries, grid["dil_pts"],
+                                   grid["dil_cand"], flat, k)
+    sq_max = sq.max(dim=1).values
+    ok = ((sq_max <= margin_sq)
+          & ~_overflow_contaminated(queries, grid["dil_ovf"][flat], sq_max,
+                                    origin, inv_h, dims))
+    return sq, idx, sel, ok, flat
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class KNNIndex:
+    """Point cloud on the device answering exact k-NN queries and
+    inverse-distance-weighted regression (sklearn ``weights="distance"``
+    semantics).  ``device=None`` means the card."""
+
+    # the bucket-grid path is built for clouds of at least this many points
+    GRID_MIN_POINTS = 32768
+    # target mean points per grid cell (sets the cell size h)
+    GRID_OCCUPANCY = 16
+    # upper bound on the per-cell member capacity
+    GRID_CAPACITY = 64
+    # shrink the cell size until no cell holds more than this many members
+    GRID_SHRINK_TARGET = 32
+    # queries per grid pass; doubled when the capacity is <= 32
+    GRID_CHUNK = 32768
+
+    @property
+    def _grid_chunk(self) -> int:
+        if self._grid is not None and self._grid["C"] <= 32:
+            return 2 * self.GRID_CHUNK
+        return self.GRID_CHUNK
+
+    def __init__(self, points, values=None, device=None,
+                 tile_n: int = DEFAULT_TILE_N, tile_q: int = DEFAULT_TILE_Q):
+        self.device = resolve_device(device)
+        points = np.asarray(points)
+        self.n_points, self.n_dim = points.shape
+        self._tile_q = tile_q
+        self._tile_n = min(tile_n, _round_up(self.n_points, 128))
+
+        # centring improves the f32 accuracy of the expanded score
+        self._shift = points.mean(axis=0)
+        centered = points - self._shift
+        # Morton order: grid cells hold contiguous index ranges and the
+        # full-scan tiles stay spatially coherent; ``_perm`` maps sorted
+        # position → original point index
+        self._perm = np.argsort(self._morton_codes(centered), kind="stable")
+        sorted_pts = centered[self._perm]
+
+        # +1 guarantees a pad row: the index ``n_points`` always exists
+        n_pad = _round_up(self.n_points + 1, self._tile_n)
+        pts = np.full((n_pad, self.n_dim), 1e30, dtype=np.float32)
+        pts[:self.n_points] = sorted_pts
+        sq = np.full((n_pad,), np.inf, dtype=np.float32)
+        sq[:self.n_points] = (sorted_pts.astype(np.float64) ** 2).sum(axis=1)
+        self._points = torch.from_numpy(pts).to(self.device)
+        self._points_sq = torch.from_numpy(sq).to(self.device)
+        self._points_host = centered      # predict_host's exact f64 pass
+        self._pad_idx = self.n_points
+        self._perm_dev = torch.from_numpy(
+            np.concatenate([self._perm, np.zeros(1, np.int64)])).to(
+                self.device)
+
+        self._grid = None
+        # exact-fallback row count of the most recent grid query
+        self.last_fallback = 0
+        if self.n_points >= self.GRID_MIN_POINTS and self.n_dim in (2, 3):
+            self._build_grid(sorted_pts)
+
+        self._values = None
+        if values is not None:
+            self.set_values(values)
+
+    def _morton_codes(self, pts: np.ndarray) -> np.ndarray:
+        lo = pts.min(axis=0)
+        extent = np.maximum(pts.max(axis=0) - lo, 1e-30)
+        depth = morton.MAX_DEPTH.get(self.n_dim)
+        if depth is None:  # 1D or >3D: lexicographic order
+            return pts[:, 0]
+        grid = np.clip(((pts - lo) / extent * ((1 << depth) - 1)).astype(
+            np.uint64), 0, (1 << depth) - 1)
+        return morton.encode(grid)
+
+    def _build_grid(self, sorted_pts: np.ndarray) -> None:
+        """Bucket grid over the sorted cloud and its dilated layout: each
+        cell's row lists the members of its whole 3^d neighbourhood,
+        ascending by index, compacted to the widest occupied row (a
+        multiple of 64, at least 128)."""
+        dev = self.device
+        d = self.n_dim
+        plan = _plan_grid(sorted_pts, self.n_points, self.GRID_OCCUPANCY,
+                          self.GRID_CAPACITY, self.GRID_SHRINK_TARGET)
+        C, n_cells = plan["C"], plan["n_cells"]
+        n_rows = n_cells + 1
+        cells, pos, order = _fill_from_flat(
+            torch.from_numpy(plan["flat_ids"]).to(dev))
+        cell_list = _cell_list(cells, pos, order, n_rows, C, self._pad_idx)
+        # pad slots read the 1e30 pad row, clamped to 1e15 so squared pad
+        # distances stay finite (~3e30) yet never rank
+        cell_pts = torch.clamp_max(self._points[cell_list.long()], 1e15)
+        occ = _max_dilated_occupancy(plan["counts"], plan["dims"], C)
+        keep_w = int(min((3 ** d) * C, max(128, -(-occ // 64) * 64)))
+        nb = torch.from_numpy(_grid_neighbor_table(plan["dims"],
+                                                   n_cells)).to(dev)
+        overflow = torch.from_numpy(
+            plan["overflow"].astype(np.float32)).to(dev)
+        dil_pts, dil_cand = _dilate_sorted(cell_pts, cell_list, nb, keep_w)
+        self._grid = {
+            "C": C,
+            "origin": torch.from_numpy(
+                plan["origin"].astype(np.float32)).to(dev),
+            "inv_h": torch.tensor(1.0 / plan["h"], dtype=torch.float32,
+                                  device=dev),
+            "dims": torch.from_numpy(plan["dims"].astype(np.int64)).to(dev),
+            "cell_list": cell_list,
+            # f32 0/1 flags (the overflow verdict compares > 0.5)
+            "overflow": overflow,
+            "dil_pts": dil_pts, "dil_cand": dil_cand,
+            "dil_ovf": overflow[nb], "_dil_keep": keep_w,
+        }
+
+    def set_values(self, values) -> None:
+        """Attach per-point values for :meth:`predict` (``[N]`` or
+        ``[N, C]``), sorted like the points, plus one zero pad row that
+        the pad index ``n_points`` gathers."""
+        values = np.asarray(values, dtype=np.float32)
+        if values.shape[0] != self.n_points:
+            raise ValueError(f"{values.shape[0]} values for "
+                             f"{self.n_points} points")
+        padded = np.zeros((self.n_points + 1,) + values.shape[1:],
+                          dtype=np.float32)
+        padded[:self.n_points] = values[self._perm]
+        self._values = torch.from_numpy(padded).to(self.device)
+        self._values_host = values
+
+    # ------------------------------------------------------------------ #
+    # search paths (sorted-point indexing)                               #
+    # ------------------------------------------------------------------ #
+    def _queries_f32(self, queries_centered: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            queries_centered, dtype=np.float32)).to(self.device)
+
+    def _full_scan(self, queries_centered: np.ndarray, k: int, mode: str):
+        """Full scan on centred f64 queries: ``pred`` for "predict", else
+        ``(sq, idx)`` with ``sq = sqrt(sq)²`` as the JAX package rounds it
+        (its full scan returns distances and squares them again)."""
+        # re-centre through the absolute coordinates, as the JAX package's
+        # chunk runner does (an ulp-level difference in rare f64 cases)
+        q = self._queries_f32((queries_centered + self._shift) - self._shift)
+        sq, idx = _search(q, self._points, self._points_sq, k, self._tile_n,
+                          self._tile_q)
+        if mode == "predict":
+            return _weighted_sum(_idw(sq), self._values[idx])
+        dists = _sqrt(torch.clamp_min(sq, 0.0))
+        return dists * dists, idx
+
+    def _grid_run(self, queries: np.ndarray, k: int, mode: str):
+        """Grid path with per-query exactness verification; rejected rows
+        are re-answered by the full scan (``last_fallback`` counts them)."""
+        g = self._grid
+        qf = self._queries_f32(queries)
+        outs, oks = [], []
+        for lo in range(0, qf.shape[0], self._grid_chunk):
+            sq, idx, _, ok, _ = _dilated_topk(qf[lo:lo + self._grid_chunk],
+                                              g, k)
+            outs.append(_weighted_sum(_idw(sq), self._values[idx])
+                        if mode == "predict" else (sq, idx))
+            oks.append(ok)
+        ok = torch.cat(oks)
+        bad = torch.nonzero(~ok).flatten()
+        self.last_fallback = int(bad.numel())
+        if mode == "predict":
+            pred = torch.cat(outs)
+            if bad.numel():
+                pred[bad] = self._full_scan(queries[bad.cpu().numpy()], k,
+                                            "predict")
+            return pred
+        sq = torch.cat([o[0] for o in outs])
+        idx = torch.cat([o[1] for o in outs])
+        if bad.numel():
+            sq[bad], idx[bad] = self._full_scan(queries[bad.cpu().numpy()],
+                                                k, "query")
+        return sq, idx
+
+    def _uses_grid(self, n_queries: int, k: int) -> bool:
+        g = self._grid
+        return (g is not None and n_queries > 0
+                and k <= min((3 ** self.n_dim) * g["C"], g["_dil_keep"]))
+
+    def _spatial_run(self, queries, k: int, mode: str):
+        """Grid path when it can hold k candidates, else the full scan.
+        Returns ``(sq, idx)`` (sorted-point indexing) or ``pred``, as
+        tensors on the device."""
+        queries = np.asarray(queries, dtype=np.float64) - self._shift
+        if self._uses_grid(queries.shape[0], k):
+            return self._grid_run(queries, k, mode)
+        return self._full_scan(queries, k, mode)
+
+    def _check_k(self, k: int) -> None:
+        if not 1 <= k <= self.n_points:
+            raise ValueError(f"k={k} must lie in [1, {self.n_points}] (the "
+                             f"number of indexed points).")
+
+    # ------------------------------------------------------------------ #
+    # public API                                                         #
+    # ------------------------------------------------------------------ #
+    def query(self, queries, k: int):
+        """Exact k-NN: ``(dists [Q, k], idx [Q, k])`` as numpy, ``idx`` in
+        original point order."""
+        self._check_k(k)
+        sq, idx = self._spatial_run(queries, k, "query")
+        dists = _sqrt(torch.clamp_min(sq, 0.0))
+        return dists.cpu().numpy(), self._perm_dev[idx].cpu().numpy()
+
+    def weights_device(self, queries, k: int):
+        """Normalised inverse-distance weights and neighbour indices
+        (original point order) as device tensors ``(w [Q, k] f32,
+        idx [Q, k] int64)``."""
+        self._check_k(k)
+        sq, idx = self._spatial_run(queries, k, "query")
+        return _idw(sq), self._perm_dev[idx]
+
+    def weights(self, queries, k: int):
+        """:meth:`weights_device` as numpy arrays."""
+        w, idx = self.weights_device(queries, k)
+        return w.cpu().numpy(), idx.cpu().numpy()
+
+    def predict(self, queries, k: int) -> np.ndarray:
+        """Inverse-distance-weighted regression of the attached values at
+        the query points (sklearn ``KNeighborsRegressor(k,
+        weights="distance")``)."""
+        if self._values is None:
+            raise RuntimeError("No values attached; call set_values() first.")
+        self._check_k(k)
+        return self._spatial_run(queries, k, "predict").cpu().numpy()
+
+    def predict_host(self, queries, k: int) -> np.ndarray:
+        """Exact f64 numpy variant for a handful of queries (the root
+        cell's 1 + 2^d gain queries): an f32 Gram-score pre-filter over
+        all points, then exact f64 distances on a 4k+16 candidate slack."""
+        if self._values is None:
+            raise RuntimeError("No values attached; call set_values() first.")
+        q = np.asarray(queries, dtype=np.float64) - self._shift
+        p = self._points_host
+        n = p.shape[0]
+        p32 = p.astype(np.float32)
+        m = min(4 * k + 16, n)
+        if m < n:
+            s = (-2.0 * q.astype(np.float32)) @ p32.T
+            s += np.einsum("nd,nd->n", p32, p32)[None, :]
+            cand = np.argpartition(s, m - 1, axis=1)[:, :m]
+        else:
+            cand = np.broadcast_to(np.arange(n), (q.shape[0], n))
+        d2 = np.square(p[cand] - q[:, None, :]).sum(-1)
+        sel = np.argpartition(d2, k - 1, axis=1)[:, :k]
+        idx = np.take_along_axis(cand, sel, axis=1)
+        dists = np.sqrt(np.take_along_axis(d2, sel, axis=1))
+        w = 1.0 / np.clip(dists, 1e-12, None)
+        w /= w.sum(axis=1, keepdims=True)
+        vals = self._values_host[idx]
+        if vals.ndim == 3:
+            return (w[..., None] * vals).sum(axis=1)
+        return (w * vals).sum(axis=1)
+
+
+def index_from_reference(arrays: dict, device=None) -> KNNIndex:
+    """A :class:`KNNIndex` over the arrays of an index the JAX package built
+    (numpy copies): ``_points``, ``_points_sq``, ``_perm``, ``_shift`` and,
+    where the cloud has a grid, ``origin``, ``inv_h``, ``dims``, ``C``,
+    ``cell_list``, ``overflow``, ``dil_pts``, ``dil_cand``, ``dil_ovf`` and
+    ``_dil_keep``.  Lets the query side run on a layout built elsewhere, so
+    a query fault shows apart from a build fault.  ``_points_host`` (the
+    centred f64 cloud, original order) is optional; without it
+    :meth:`KNNIndex.predict_host` works from the f32 points."""
+    dev = resolve_device(device)
+    idx = KNNIndex.__new__(KNNIndex)
+    idx.device = dev
+    perm = np.asarray(arrays["_perm"]).astype(np.int64)
+    points = np.asarray(arrays["_points"], dtype=np.float32)
+    idx.n_points = perm.shape[0]
+    idx.n_dim = points.shape[1]
+    idx._tile_q = DEFAULT_TILE_Q
+    idx._tile_n = min(DEFAULT_TILE_N, _round_up(idx.n_points, 128))
+    if points.shape[0] % idx._tile_n:
+        raise ValueError(f"{points.shape[0]} padded points are not a "
+                         f"multiple of the tile {idx._tile_n}")
+    idx._shift = np.asarray(arrays["_shift"], dtype=np.float64)
+    idx._perm = perm
+    idx._points = torch.from_numpy(points.copy()).to(dev)
+    idx._points_sq = torch.from_numpy(np.asarray(
+        arrays["_points_sq"], dtype=np.float32).copy()).to(dev)
+    host = arrays.get("_points_host")
+    if host is None:
+        host = np.empty((idx.n_points, idx.n_dim), dtype=np.float64)
+        host[perm] = points[:idx.n_points]
+    idx._points_host = np.asarray(host, dtype=np.float64)
+    idx._pad_idx = idx.n_points
+    idx._perm_dev = torch.from_numpy(
+        np.concatenate([perm, np.zeros(1, np.int64)])).to(dev)
+    idx.last_fallback = 0
+    idx._values = None
+    idx._grid = None
+    if "dil_pts" in arrays:
+        def t(name, dtype):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.asarray(arrays[name]).astype(dtype))).to(dev)
+        overflow = t("overflow", np.float32)
+        idx._grid = {
+            "C": int(arrays["C"]),
+            "origin": t("origin", np.float32),
+            "inv_h": torch.tensor(float(np.asarray(arrays["inv_h"])),
+                                  dtype=torch.float32, device=dev),
+            "dims": t("dims", np.int64),
+            "cell_list": t("cell_list", np.int32),
+            "overflow": overflow,
+            "dil_pts": t("dil_pts", np.float32),
+            "dil_cand": t("dil_cand", np.int32),
+            "dil_ovf": t("dil_ovf", np.float32),
+            "_dil_keep": int(arrays["_dil_keep"]),
+        }
+    return idx

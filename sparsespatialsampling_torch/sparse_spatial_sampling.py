@@ -1,0 +1,180 @@
+"""Public façade of the PyTorch port of S³.
+
+Mirror of the JAX package's ``sparse_spatial_sampling.py`` (reference
+``sparseSpatialSampling/sparse_spatial_sampling.py:20-212``): same
+constructor (plus ``device``), same validation, same artifacts — the
+``mesh_info_{name}.pt`` dict and a reloadable ``s_cube_{name}.pt`` object
+checkpoint, both written with ``torch.save``.  Input and result arrays are
+numpy on the host; the engine runs its numerics on ``device`` (the card
+unless the caller asks for the CPU).
+"""
+import logging
+from os import makedirs, path
+from os.path import join
+from time import perf_counter
+from typing import Union
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .engine.tree import SamplingTree
+
+logger = logging.getLogger(__name__)
+
+
+def _save_object(obj, file_path: str) -> None:
+    # pickle protocol 4: faster and smaller for numpy payloads, still a
+    # regular torch zip archive
+    torch.save(obj, file_path, pickle_protocol=4)
+
+
+def load_s_cube(file_path: str):
+    """Reload a :class:`SparseSpatialSampling` checkpoint written by
+    :meth:`SparseSpatialSampling.execute_grid_generation` (it unpickles:
+    load only files this program wrote)."""
+    return torch.load(file_path, weights_only=False)
+
+
+class SparseSpatialSampling:
+    """Execute the S³ algorithm: metric-driven adaptive quadtree/octree grid
+    generation for CFD data reduction."""
+
+    def __init__(self, coordinates, metric, geometry_objects: list,
+                 save_path: str, save_name: str,
+                 grid_name: str = "grid_s_cube", uniform_levels: int = 5,
+                 n_cells_max: Union[int, float] = None,
+                 min_metric: float = 0.75, max_delta_level: bool = False,
+                 n_cells_iter_start: int = None, n_cells_iter_end: int = None,
+                 n_jobs: int = 1, relTol: Union[int, float] = 1e-3,
+                 reach_at_least: float = 0.75,
+                 pre_select_cells: bool = False, device=None):
+        """
+        :param coordinates: coordinates of the original grid ``[N, d]``
+        :param metric: refinement-indicator field ``[N]``
+        :param geometry_objects: geometry objects; one must have
+            ``keep_inside=True`` (the numerical domain)
+        :param save_path: directory for the generated grid and data
+        :param save_name: base name of the output files
+        :param grid_name: grid name used in the XDMF file
+        :param uniform_levels: number of uniform refinement cycles
+        :param n_cells_max: max number of cells (overrides ``min_metric``)
+        :param min_metric: target captured-metric fraction
+        :param max_delta_level: not ported yet; True raises
+        :param n_cells_iter_start: cells refined per iteration at the start
+        :param n_cells_iter_end: cells refined per iteration at the end
+        :param n_jobs: accepted for reference drop-in use; ignored
+        :param relTol: min improvement between consecutive iterations
+        :param reach_at_least: fraction of the target to reach before the
+            relTol stopping criterion arms
+        :param pre_select_cells: accepted for drop-in use; the ported
+            geometries need no bbox pre-selection
+        :param device: torch device of the numerics; None means ``cuda``
+            (raises when there is no card)
+        """
+        self.device = resolve_device(device)
+        self.n_jobs = n_jobs
+        self.coordinates = np.asarray(coordinates)
+        self.metric = np.asarray(metric)
+        self.save_path = save_path
+        self.save_name = save_name
+        self.grid_name = grid_name
+
+        # results copied off the SamplingTree after execution
+        self.centers = None
+        self.vertices = None
+        self.faces = None
+        self.n_dimensions = int(np.squeeze(self.coordinates).shape[-1])
+        self.size_initial_cell = None
+        self.levels = None
+        self.data_final_mesh = None
+
+        self._geometries = geometry_objects
+        self._level_bounds = int(uniform_levels)
+        self._n_cells_max = (n_cells_max if n_cells_max is None
+                             else int(n_cells_max))
+        self._min_metric = min_metric
+        self._max_delta_level = max_delta_level
+        self._n_cells_iter_start = (n_cells_iter_start
+                                    if n_cells_iter_start is None
+                                    else int(n_cells_iter_start))
+        self._n_cells_iter_end = (n_cells_iter_end if n_cells_iter_end is None
+                                  else int(n_cells_iter_end))
+        self._relTol = relTol
+        self._reach_at_least = reach_at_least
+
+        self._check_input()
+
+        self._sampling = SamplingTree(
+            self.coordinates, self.metric, self._geometries,
+            n_cells=self._n_cells_max, uniform_level=self._level_bounds,
+            min_metric=self._min_metric,
+            max_delta_level=self._max_delta_level,
+            n_cells_iter_end=self._n_cells_iter_end,
+            n_cells_iter_start=self._n_cells_iter_start,
+            relTol=self._relTol, reach_at_least=self._reach_at_least,
+            device=self.device)
+
+    def execute_grid_generation(self) -> None:
+        """Run the refinement and persist the results (reference
+        ``execute_grid_generation``, ``sparse_spatial_sampling.py:116-146``).
+        The engine's kNN index stays on the object (not in the checkpoint)
+        for :class:`ExportData` to reuse."""
+        if not path.exists(self.save_path):
+            makedirs(self.save_path)
+        self._sampling.refine()
+        t0 = perf_counter()
+        self.data_final_mesh = self._sampling.data_final_mesh
+        self.levels = self._sampling.all_levels
+        self.centers = self._sampling.all_centers
+        self.vertices = self._sampling.all_nodes
+        self.faces = self._sampling.face_ids
+        self.size_initial_cell = self.data_final_mesh["size_initial_cell"]
+        self.data_final_mesh["t_finalize"] = perf_counter() - t0
+        _save_object(self.data_final_mesh,
+                     join(self.save_path, f"mesh_info_{self.save_name}.pt"))
+
+        knn_index = self._sampling._knn
+        self._sampling = None   # the checkpoint only needs the final grid
+        t1 = perf_counter()
+        _save_object(self, join(self.save_path,
+                                f"s_cube_{self.save_name}.pt"))
+        self.data_final_mesh["t_checkpoint"] = perf_counter() - t1
+        self._knn_index = knn_index
+
+    def __getstate__(self):
+        """Checkpoints never carry the runtime kNN index (device tensors);
+        :class:`ExportData` rebuilds one on reload."""
+        state = self.__dict__.copy()
+        state.pop("_knn_index", None)
+        return state
+
+    def _check_input(self) -> None:
+        """Validate and auto-correct user settings (reference
+        ``_check_input``, ``sparse_spatial_sampling.py:148-186``)."""
+        if np.squeeze(self.metric).ndim != 1:
+            raise ValueError(
+                f"'metric' must be a flat per-point array (one value for "
+                f"each of the {self.coordinates.shape[0]} grid points); got "
+                f"shape {self.metric.shape} instead.")
+        if self._n_cells_max is None and self._min_metric > 1:
+            logger.warning("'min_metric' is a captured-metric fraction and "
+                           "cannot exceed 1 — clamping it to 1.")
+            self._min_metric = 1
+        if not self._geometries:
+            raise ValueError("'geometry_objects' is empty — pass at least the "
+                             "domain geometry (keep_inside=True).")
+        if not any(g.keep_inside for g in self._geometries):
+            raise ValueError("None of the geometry objects has "
+                             "keep_inside=True; exactly that object defines "
+                             "the numerical domain S³ refines within.")
+        if self._level_bounds <= 0:
+            logger.warning(f"'uniform_levels' must be at least 1 (got "
+                           f"{self._level_bounds}) — raising it to 1.")
+            self._level_bounds = 1
+        if self._n_cells_max is not None:
+            logger.warning(
+                "'n_cells_max' takes precedence as the stopping criterion: "
+                "the run stops at the cell budget and 'min_metric' is "
+                "ignored. Leave 'n_cells_max' unset (None) to stop on the "
+                "captured-metric target instead.")

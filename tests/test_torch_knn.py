@@ -1,0 +1,154 @@
+"""The port's ``KNNIndex`` against the JAX package's on seeded clouds.
+
+Both the bucket-grid path (``GRID_MIN_POINTS`` patched to 1000 on both
+classes) and the full scan (``GRID_MIN_POINTS`` = 10**12) must return the
+same neighbour indices and bitwise the same distances; predictions and
+weights agree to f32 summation order (rtol 1e-6).  The dilated layout,
+the per-query accept masks and the fallback counts must be equal, and the
+port's query side must give the same answers on the layout the JAX package
+built (``index_from_reference``).
+"""
+from functools import partial
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from sparsespatialsampling_tpu.ops import knn as jknn  # noqa: E402
+from sparsespatialsampling_torch.ops import knn as tknn  # noqa: E402
+
+CASES = [(2, 6000), (3, 4000)]
+MODES = {"grid": 1000, "full-scan": 10 ** 12}
+
+
+def _cloud(d, n):
+    rng = np.random.default_rng(d)
+    pts = rng.uniform(0, 1, size=(n, d))
+    # a void the grid cannot answer near: exercises the exact fallback
+    pts = pts[np.linalg.norm(pts - 0.5, axis=1) > 0.12]
+    vals = np.sin(4.0 * pts.sum(axis=1)) + 0.1 * pts[:, 0]
+    q = rng.uniform(-0.05, 1.05, size=(900, d))
+    return pts, vals, q
+
+
+def _pair(monkeypatch, d, n, mode):
+    monkeypatch.setattr(jknn.KNNIndex, "GRID_MIN_POINTS", MODES[mode])
+    monkeypatch.setattr(tknn.KNNIndex, "GRID_MIN_POINTS", MODES[mode])
+    pts, vals, q = _cloud(d, n)
+    j = jknn.KNNIndex(pts, values=vals)
+    t = tknn.KNNIndex(pts, values=vals, device="cpu")
+    assert (j._grid is None) == (t._grid is None) == (mode == "full-scan")
+    return j, t, q, (8 if d == 2 else 26)
+
+
+@pytest.fixture(params=[(d, n, m) for d, n in CASES for m in MODES],
+                ids=[f"{d}d-{m}" for d, _ in CASES for m in MODES])
+def pair(request, monkeypatch):
+    return _pair(monkeypatch, *request.param)
+
+
+@pytest.fixture(params=CASES, ids=[f"{d}d" for d, _ in CASES])
+def grid_pair(request, monkeypatch):
+    return _pair(monkeypatch, *request.param, "grid")
+
+
+def test_query_bitwise(pair):
+    j, t, q, k = pair
+    jd, ji = j.query(q, k)
+    td, ti = t.query(q, k)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+    assert t.last_fallback == j.last_fallback
+
+
+def test_predict_and_weights(pair):
+    j, t, q, k = pair
+    jp, tp = j.predict(q, k), t.predict(q, k)
+    np.testing.assert_allclose(tp, jp, rtol=1e-6, atol=1e-6)
+    jw, jwi = j.weights(q, k)
+    tw, twi = t.weights(q, k)
+    np.testing.assert_array_equal(twi, jwi)
+    np.testing.assert_allclose(tw, jw, rtol=1e-6)
+
+
+def _reference_arrays(j):
+    g = j._grid
+    arrays = {"_points": np.asarray(j._points),
+              "_points_sq": np.asarray(j._points_sq),
+              "_perm": j._perm, "_shift": j._shift,
+              "_points_host": j._points_host}
+    for key in ("origin", "inv_h", "dims", "C", "cell_list", "overflow",
+                "dil_pts", "dil_cand", "dil_ovf", "_dil_keep"):
+        arrays[key] = np.asarray(g[key])
+    return arrays
+
+
+def test_grid_layout_and_accept_masks(grid_pair):
+    j, t, q, k = grid_pair
+    jg, tg = j._grid, t._grid
+    assert tg["C"] == jg["C"] and tg["_dil_keep"] == jg["_dil_keep"]
+    for key in ("cell_list", "dil_cand", "dil_pts", "dil_ovf", "dims",
+                "origin"):
+        np.testing.assert_array_equal(tg[key].numpy(), np.asarray(jg[key]))
+    qc = (q - j._shift).astype(np.float32)
+    jsq, jidx, jok = (np.asarray(a) for a in jknn._grid_query_kernel_dil(
+        jnp.asarray(qc), jg["dil_pts"], jg["dil_cand"], jg["dil_ovf"],
+        jg["origin"], jg["inv_h"], jg["dims"], k))
+    tsq, tidx, _, tok, _ = tknn._dilated_topk(torch.from_numpy(qc), tg, k)
+    np.testing.assert_array_equal(tok.numpy(), jok)
+    assert 0 < (~jok).sum() < jok.size   # both outcomes are exercised
+    np.testing.assert_array_equal(tsq.numpy()[jok], jsq[jok])
+    np.testing.assert_array_equal(tidx.numpy()[jok], jidx[jok])
+
+
+def test_query_side_on_jax_built_layout(grid_pair):
+    j, t, q, k = grid_pair
+    r = tknn.index_from_reference(_reference_arrays(j), device="cpu")
+    r.set_values(j._values_host)
+    jd, ji = j.query(q, k)
+    rd, ri = r.query(q, k)
+    np.testing.assert_array_equal(ri, ji)
+    np.testing.assert_array_equal(rd, jd)
+    np.testing.assert_allclose(r.predict(q, k), j.predict(q, k), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_delta_sum_bitwise_equals_jitted_jnp_sum(d):
+    """The equality of grid and full-scan rows rests on one distance
+    formula: the port's must equal XLA's ``jnp.sum(dd * dd, -1)``."""
+    rng = np.random.default_rng(d)
+    delta = rng.uniform(-1.0, 1.0, size=(50_000, d)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda x: jnp.sum(x * x, axis=-1))(delta))
+    got = tknn._sqsum(torch.from_numpy(delta)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_full_scan_search_matches_jax(d):
+    rng = np.random.default_rng(10 + d)
+    n, k = 3000, 8 if d == 2 else 26
+    pts = np.full((3072, d), 1e30, dtype=np.float32)
+    pts[:n] = rng.uniform(-1, 1, size=(n, d))
+    sq = np.full(3072, np.inf, dtype=np.float32)
+    sq[:n] = (pts[:n].astype(np.float64) ** 2).sum(1)
+    q = rng.uniform(-1.1, 1.1, size=(256, d)).astype(np.float32)
+    search = jax.jit(partial(jknn._search, k=k, tile_n=1024, tile_q=128))
+    jsq, jidx = (np.asarray(a) for a in search(jnp.asarray(q),
+                                               jnp.asarray(pts),
+                                               jnp.asarray(sq)))
+    tsq, tidx = tknn._search(torch.from_numpy(q), torch.from_numpy(pts),
+                             torch.from_numpy(sq), k, 1024, 128)
+    np.testing.assert_array_equal(tidx.numpy(), jidx)
+    np.testing.assert_array_equal(tsq.numpy(), jsq)
+
+
+def test_k_out_of_range_raises():
+    t = tknn.KNNIndex(np.random.default_rng(0).uniform(size=(50, 2)),
+                      device="cpu")
+    with pytest.raises(ValueError):
+        t.query(np.zeros((1, 2)), 51)
