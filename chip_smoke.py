@@ -16,17 +16,25 @@ Phases:
 - ``env``: torch / CUDA versions and the card;
 - ``build``: compiles every ``csrc/*.cu`` (one ``nvcc`` each, in parallel);
 - ``kernel``: ``topk_smallest`` against its plain version at the 3D epoch
-  shape [36864, 864] k=26 and a 2D shape [20480, 576] k=8, with in-row
-  ties, whole-row ties and a row with fewer than k finite entries —
-  ``vals`` and ``sel`` must be bitwise equal; CUDA-event medians of the
+  shape [36864, 864] k=26, a 2D shape [20480, 576] k=8, the merge width of
+  the full scan [1024, 1054] k=34 (in-row ties, whole-row ties and a row
+  with fewer than k finite entries), a score-like full-scan tile
+  [1024, 16384] k=34 whose last columns are +inf, and the edges k=1 and
+  k=W — ``vals`` and ``sel`` must be bitwise equal; device times of the
   kernel, the plain version and ``torch.topk`` (a yardstick the port never
-  calls) beside the memory bound;
+  calls) from CUDA-graph replays over copies of the input that do not fit
+  in L2 together (``cuda_ms``), beside the memory bound;
+- ``full_scan``: 2 048 queries over a 120 000-point cylinder-wake cloud
+  through the full scan (``ops/knn.py:_search``) on the card and on the
+  CPU; ``(sq, idx)`` must be bitwise equal;
 - ``grid3d``: the cylinder-wake cloud (500 000 points, seed 1) refined to
   150 000 cells with a sphere obstacle refined to level 7, then 10
   snapshots exported through ``ExportData.export`` and the HDF5 file read
   back (where h5py is installed; else through ``ExportData.interpolate``,
   the same interpolation without the write), and 2 000 cells checked
-  against a float64 k-d-tree IDW reference;
+  against a float64 k-d-tree IDW reference; then, outside the timed walls,
+  a ``torch.profiler`` window over one full-scan call of 4 query blocks on
+  the same cloud, printing the five device operations with the most time;
 - ``grid2d_metric``: a 250 000-point 2D channel cloud with a circular
   obstacle in captured-metric mode (``min_metric=0.75``): the k=8 kernel
   and the metric stopping rule;
@@ -34,13 +42,17 @@ Phases:
   the CPU; the (level, centre) sets and iteration counts must be identical.
 
 The launch counters are set to 0 just before each main-path run and read
-just after it; every main-path run must have launched every kernel.  The
-largest kernel input each main-path run produced is held (a reference, not
-a copy) and, after the run, compared and timed again, so the reported times
-are at the shapes the main path gives the kernel.
+just after it; every main-path run must have launched every kernel, from
+each of its call sites (the grid selection, the full scan's per-tile
+selection and its merge), and the sites' launches must add up to the
+kernel's counter.  The largest kernel input each call site got in
+a main-path run is held (a reference, not a copy) and, after the run,
+compared and timed again, so the reported times are at the shapes the main
+path gives the kernel.
 """
 import importlib.util
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -53,9 +65,11 @@ import torch
 # the export's HDF5 write needs h5py; without it the smoke run checks the
 # field that ExportData.interpolate returns instead of the file
 HAVE_H5PY = importlib.util.find_spec("h5py") is not None
-# H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor cores and
+# the L2 cache's size
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2 ** 20
 
 
 def emit(obj) -> None:
@@ -70,29 +84,45 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` in milliseconds."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(fn, x: torch.Tensor, min_reps: int = 10,
+            rounds: int = 5) -> float:
+    """Device time of one call ``fn(x)`` in milliseconds: calls captured in
+    a CUDA graph, the graph replayed ``rounds`` times between CUDA events,
+    the median replay divided by the calls.  The replay leaves out the
+    host's Python and launch overhead, which a single small call would
+    otherwise measure.  Each call reads the next of enough copies of ``x``
+    to fill the L2 cache four times over, so no call finds its input in L2
+    from the call before (at least ``min_reps`` calls)."""
+    n_copies = max(2, math.ceil(4 * L2_BYTES / max(x.nbytes, 1)))
+    copies = [x] + [x.clone() for _ in range(n_copies - 1)]
+    reps = max(min_reps, n_copies)
+    fn(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(copies[i % n_copies])
+    graph.replay()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
+    del graph, copies
     return float(np.median(times))
 
 
 def topk_bound(q: int, w: int, k: int):
     """Least time for the selection: each input read once, each output
-    written once, against k passes of W compares per row at the f32 rate.
+    written once, against one compare per element at the f32 rate.
     Returns ``(bound_ms, bound_by)``."""
     t_bytes = (q * w * 4 + q * k * 8) / HBM_BYTES_PER_S * 1e3
-    t_ops = (q * w * k) / F32_OPS_PER_S * 1e3
+    t_ops = (q * w) / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -120,10 +150,10 @@ def check_topk(x: torch.Tensor, k: int, timed: bool = True) -> dict:
     if timed:
         bound, by = topk_bound(q, w, k)
         res.update(
-            ms=cuda_ms(lambda: topk.topk_smallest(x, k)),
-            plain_ms=cuda_ms(lambda: topk.topk_smallest_plain(x, k), reps=3,
-                             warmup=1),
-            library_ms=cuda_ms(lambda: torch.topk(x, k, largest=False)),
+            ms=cuda_ms(lambda t: topk.topk_smallest(t, k), x),
+            plain_ms=cuda_ms(lambda t: topk.topk_smallest_plain(t, k), x,
+                             min_reps=3),
+            library_ms=cuda_ms(lambda t: torch.topk(t, k, largest=False), x),
             bound_ms=bound, bound_by=by)
     return res
 
@@ -141,30 +171,63 @@ def tie_laden(q: int, w: int, k: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(x).cuda()
 
 
+def score_tile(q: int, w: int, n_pad: int, seed: int) -> torch.Tensor:
+    """Seeded full-scan score tile ``|p|² − 2 q·p`` over ``w`` points of
+    which the last ``n_pad`` are pads (score +inf), with ties and one row
+    holding fewer than 34 finite entries."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.0, 1.0, size=(w, 3)).astype(np.float32)
+    qs = rng.uniform(-1.0, 1.0, size=(q, 3)).astype(np.float32)
+    psq = (pts * pts).sum(axis=1)
+    psq[w - n_pad:] = np.inf
+    x = psq[None, :] - np.float32(2.0) * (qs @ pts.T)
+    x[:, ::13] = np.round(x[:, ::13], 2)        # in-row ties
+    x[5, 20:] = np.inf                          # fewer than k finite
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).cuda()
+
+
 def phase_kernel() -> dict:
     out = {"phase": "kernel", "cases": []}
-    for q, w, k, seed in ((36864, 864, 26, 0), (20480, 576, 8, 1)):
+    for q, w, k, seed in ((36864, 864, 26, 0), (20480, 576, 8, 1),
+                          (1024, 1054, 34, 2), (4096, 1054, 1, 3),
+                          (2048, 200, 200, 4)):
         out["cases"].append(check_topk(tie_laden(q, w, k, seed), k))
+    out["cases"].append(check_topk(score_tile(1024, 16384, 1500, 5), 34))
     return out
 
 
+# the kNN function that calls the kernel → its call site's name (the full
+# scan's merge selects in ``_search`` itself)
+SITES = {"_dilated_select": "grid_select", "_tile_select": "full_scan_tile",
+         "_search": "full_scan_merge"}
+
+
 class KernelTap:
-    """Holds the largest input the selection kernel got during a main-path
-    run (wraps the module function the kNN calls).  It keeps a reference,
-    not a copy, so the run's walls carry no extra work: the input is a fresh
-    distance tensor that nothing writes to after the selection."""
+    """Holds the largest input the selection kernel got at each call site
+    during a main-path run, and counts the launches per site (wraps the
+    module function the kNN calls).  A site's count is what the wrapper's
+    own launch counter gained during the site's calls.  It keeps
+    references, not copies, so the run's walls carry no extra work: each
+    input is a fresh tensor that nothing writes to after the selection."""
 
     def __init__(self):
         from sparsespatialsampling_torch.ops import topk
         self._topk = topk
         self._orig = topk.topk_smallest
-        self.x, self.k = None, None
+        self.inputs, self.launches = {}, {}
 
     def __enter__(self):
         def tapped(x, k):
-            if self.x is None or x.numel() > self.x.numel():
-                self.x, self.k = x, k
-            return self._orig(x, k)
+            caller = sys._getframe(1).f_code.co_name
+            site = SITES.get(caller, caller)
+            held = self.inputs.get(site)
+            if held is None or x.numel() > held[0].numel():
+                self.inputs[site] = (x, k)
+            before = self._topk.launches
+            out = self._orig(x, k)
+            self.launches[site] = (self.launches.get(site, 0)
+                                   + self._topk.launches - before)
+            return out
         self._topk.topk_smallest = tapped
         return self
 
@@ -307,10 +370,66 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
         torch.cuda.synchronize()
         counts = read_counts()
     missing = [n for n, c in counts.items() if c == 0]
+    missing += [s for s in SITES.values() if not tap.launches.get(s)]
     if missing:
-        raise AssertionError(f"{phase}: kernels never launched on the main "
-                             f"path: {missing}")
+        raise AssertionError(f"{phase}: kernels or call sites never "
+                             f"launched on the main path: {missing}")
+    if sum(tap.launches.values()) != counts["topk_smallest"]:
+        raise AssertionError(f"{phase}: launches per call site "
+                             f"{tap.launches} do not add up to the kernel's "
+                             f"count {counts['topk_smallest']}")
     return s3, exp, field, t, counts, tap
+
+
+def check_sites(tap) -> dict:
+    """Each call site's largest main-path input, checked and timed."""
+    return {site: {**check_topk(x, k), "launches": tap.launches[site]}
+            for site, (x, k) in sorted(tap.inputs.items())}
+
+
+def device_ms(event) -> float:
+    """Self device time of a profiler row of device work (kernels, copies),
+    in ms; 0 for a host operator, whose row repeats its kernels' time (the
+    attribute's name differs between torch versions)."""
+    if getattr(event, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        return 0.0
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(event, attr, None)
+        if v is not None:
+            return v / 1e3
+    return 0.0
+
+
+def profile_full_scan(index, bounds) -> dict:
+    """``torch.profiler`` over one full-scan call of 4 query blocks on the
+    grid3d cloud: the five device operations with the most time."""
+    from sparsespatialsampling_torch.ops import knn
+    rng = np.random.default_rng(6)
+    queries = rng.uniform(bounds[0], bounds[1], size=(4 * index._tile_q, 3))
+    q = index._queries_f32(queries - index._shift)
+
+    def call():
+        return knn._search(q, index._points, index._points_sq, 26,
+                           index._tile_n, index._tile_q)
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=device_ms, reverse=True)
+    total = sum(device_ms(e) for e in rows)
+    out = {"n_queries": int(q.shape[0]), "wall_s_profiled": wall,
+           "device_ms_total": total}
+    if total == 0.0:
+        out["note"] = "key_averages() shows no device time"
+        return out
+    out["top5"] = [{"name": e.key, "device_ms": device_ms(e),
+                    "count": e.count} for e in rows[:5]]
+    return out
 
 
 def phase_grid3d(tmp: str) -> tuple:
@@ -334,8 +453,9 @@ def phase_grid3d(tmp: str) -> tuple:
                "t_weights", "t_metric", "t_kernel", "t_h5")},
            "launches": counts,
            **check_export(tmp, "c3d", xyz, snaps, s3, field, n_snap)}
-    out["kernel_at_main_path_shape"] = check_topk(tap.x, tap.k)
-    return out, counts, out["kernel_at_main_path_shape"]
+    out["kernel_at_call_sites"] = check_sites(tap)
+    out["profile_full_scan"] = profile_full_scan(s3._knn_index, bounds)
+    return out, counts
 
 
 def phase_grid2d_metric(tmp: str) -> tuple:
@@ -349,8 +469,44 @@ def phase_grid2d_metric(tmp: str) -> tuple:
         uniform_levels=5, min_metric=0.75)
     out = {"phase": "grid2d_metric", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts}
-    out["kernel_at_main_path_shape"] = check_topk(tap.x, tap.k)
+    out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
+
+
+def phase_full_scan() -> dict:
+    """The full scan on the card against the same scan on the CPU."""
+    from sparsespatialsampling_torch.ops import knn
+    xyz, _, bounds = cylinder_wake_3d(120_000, seed=4)
+    queries = np.random.default_rng(5).uniform(bounds[0], bounds[1],
+                                               size=(2048, 3))
+    k = 26
+    out, got = {"phase": "full_scan", "n_points": 120_000,
+                "n_queries": 2048, "k": k}, {}
+    for dev in ("cuda", "cpu"):
+        index = knn.KNNIndex(xyz, device=dev)
+        q = index._queries_f32(queries - index._shift)
+
+        def call():
+            return knn._search(q, index._points, index._points_sq, k,
+                               index._tile_n, index._tile_q)
+        if dev == "cuda":
+            call()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sq, idx = call()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[f"{dev}_wall_s"] = time.perf_counter() - t0
+        got[dev] = (sq.cpu(), idx.cpu())
+    (sa, ia), (sb, ib) = got["cuda"], got["cpu"]
+    if not (torch.equal(sa, sb) and torch.equal(ia, ib)):
+        raise AssertionError(
+            f"full scan differs between cuda and cpu: sq equal "
+            f"{torch.equal(sa, sb)}, idx equal {torch.equal(ia, ib)}")
+    if not bool(torch.isfinite(sa).all()):
+        raise AssertionError("full scan returned non-finite distances")
+    out["bitwise_equal_cpu"] = True
+    return out
 
 
 def phase_cuda_vs_cpu(tmp: str) -> dict:
@@ -407,7 +563,8 @@ def main() -> int:
     try:
         kernel = phase_kernel()
         emit(kernel)
-        grid3d, counts3d, main3d = phase_grid3d(tmp)
+        emit(phase_full_scan())
+        grid3d, counts3d = phase_grid3d(tmp)
         emit(grid3d)
         grid2d, counts2d = phase_grid2d_metric(tmp)
         emit(grid2d)
@@ -415,9 +572,14 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # every number below was measured in this run; the times are those at
-    # the largest input the grid3d main path gave the kernel
-    checks = kernel["cases"] + [main3d, grid2d["kernel_at_main_path_shape"]]
+    # every number below was measured in this run; the top-level times are
+    # those at the grid3d full-scan tile, the call site with the most work,
+    # and "sites" holds each grid3d call site's largest input
+    sites3d = grid3d["kernel_at_call_sites"]
+    checks = (kernel["cases"] + list(sites3d.values())
+              + list(grid2d["kernel_at_call_sites"].values()))
+    timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     epoch = kernel["cases"][0]
     emit({"kernels": [{
         "name": "topk_smallest", "route": "cuda",
@@ -427,11 +589,10 @@ def main() -> int:
         "launches_grid2d_metric": counts2d["topk_smallest"],
         "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        **{key: main3d[key] for key in (
-            "shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
-        "epoch_shape": {key: epoch[key] for key in (
-            "shape", "k", "ms", "plain_ms", "library_ms", "bound_ms")}}]})
+        **{key: sites3d["full_scan_tile"][key] for key in timed},
+        "sites": {site: {key: c[key] for key in timed + ("launches",)}
+                  for site, c in sites3d.items()},
+        "epoch_shape": {key: epoch[key] for key in timed}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

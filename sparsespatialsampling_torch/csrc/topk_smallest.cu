@@ -1,116 +1,435 @@
 // k smallest values of each row of a float32 matrix, ascending, with ties
-// to the lowest column: the selection step of the dilated-grid kNN.
+// to the lowest column: the selection step of the dilated-grid kNN and of
+// the full scan (per score tile, then over the tiles' merged candidates).
 //
 // Replaces the TPU kernel `topk_smallest` of the JAX package
 // (ops/pallas_topk.py:62, body `_topk_small_kernel` at :29-51) and computes
 // the same function bit for bit:
-//   * k rounds of "take the row minimum, at its lowest slot, then overwrite
-//     that slot with +inf";
-//   * values are the input values unchanged, slots are int32;
-//   * a row with fewer than k finite entries repeats the lowest slot that
-//     holds +inf, as the TPU kernel does (ops/pallas_topk.py:67-74).
+//   * the k smallest of each row, ascending, ties to the lowest column;
+//   * values are the input values unchanged, columns are int32;
+//   * the TPU kernel's caveat (ops/pallas_topk.py:67-74): it extracts by
+//     overwriting each winner with +inf, so once a row's entries below +inf
+//     run out the whole row is +inf and every further output is (+inf,
+//     column 0).  Here every +inf output is written as (+inf, 0).
 //
-// What bounds it: the input is read once, Q*W*4 bytes (127 MB at the 3D
-// epoch shape [36864, 864]), so the floor is the memory rate; the k rounds
-// are short dependent chains of shared-memory reads and warp shuffles.
-// What the design does about it: one warp per row stages the row in shared
-// memory with coalesced loads (lane l takes columns l, l+32, ...), so the
-// row leaves device memory exactly once.  Every lane keeps the minimum of
-// its own columns in registers; a round is one five-step shuffle reduction
-// of (value, slot) pairs, and only the lane that owned the winner rescans
-// its W/32 columns.  Enough warps stay resident (4 rows a block, W*16 bytes
-// of shared memory a block) to hide the reads of the staging pass.
+// What bounds it: each row is read once and k (value, column) pairs are
+// written, Q*W*4 + Q*k*8 bytes at 3.35 TB/s (0.040 ms at the 3D epoch
+// shape [36864, 864] k=26, 0.020 ms at a full-scan tile [1024, 16384]
+// k=34).  Selection needs about one compare per element and no products,
+// so the memory rate is the bound and tensor cores do not apply.
+//
+// What the design does about it (WarpSelect of Johnson, Douze and Jegou,
+// "Billion-scale similarity search with GPUs", 2017):
+//   * One 64-bit key per element: the f32 mapped to an order-preserving
+//     u32 (sign bit flipped for non-negative values, all bits for negative
+//     ones; -0 taken as +0, as `==` does) in the high half, the column in
+//     the low half.  One unsigned compare is "smaller value, then lower
+//     column", and all keys of a row are distinct.
+//   * Each warp reads its slice of the row twice, in 16-byte vector loads
+//     (a scalar head up to 16-byte alignment and a scalar tail where W is
+//     not a multiple of 4), four loads in flight per lane.  The first pass
+//     keeps each lane's smallest entry (two for k > 32) in registers; the
+//     second finds the slice in cache (L1 or L2: it was just read), so
+//     device memory sees each byte once.  Rows are contiguous, so plain
+//     vector loads already move whole 512-byte lines per warp; TMA or
+//     cp.async would only stage the row in shared memory, which this
+//     design never needs.
+//   * A warp queue holds the best ceil32(k) keys merged so far, sorted
+//     across the lanes in registers; its k-th key is the admission
+//     threshold.  The lanes' smallest entries are merged first, which sets
+//     the threshold near the slice's k-th key.  In the second pass a vector
+//     step whose four values all lie above the threshold costs four float
+//     compares and one vote; keys below it are compacted (ballot +
+//     popcount) into a per-warp buffer in shared memory, and every 32
+//     buffered keys are sorted by a warp-wide bitonic network of shuffles
+//     and merged into the queue (reverse, min, bitonic merge).
+//   * Narrow rows (W <= 2048: epoch rows, the merge of the full scan's
+//     candidates) take one warp per row, four rows a block.  Wide rows (the
+//     16384-wide full-scan tile) take one block of up to 8 warps per row:
+//     each warp selects over a strided slice, then the warps' sorted queues
+//     are merged pairwise in shared memory (a few KB), log2(warps) levels.
+//   * No row is staged: W is bounded only by the int32 column index.
+//
+// Limits: 1 <= k <= min(W, 256).
 #include <cuda_runtime.h>
-#include <climits>
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 4;
-constexpr unsigned kFullMask = 0xffffffffu;
+typedef unsigned long long u64;
 
-// (value, slot) of the smallest of this lane's columns l, l+32, ... of
-// `row`; the first column is taken unconditionally and later ones only when
-// strictly smaller, so equal values (+inf included) keep the lowest slot.
-__device__ __forceinline__ void lane_min(const float* row, int w, int lane,
-                                         float& best_v, int& best_s) {
-  best_v = __int_as_float(0x7f800000);  // +inf
-  best_s = INT_MAX;                     // no column: loses every tie
-  for (int s = lane; s < w; s += kWarp) {
-    const float v = row[s];
-    if (best_s == INT_MAX || v < best_v) {
-      best_v = v;
-      best_s = s;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxK = 256;
+constexpr u64 kEmpty = ~0ull;              // above every key of a row
+constexpr unsigned kInfOrd = 0xff800000u;  // ordered image of +inf
+constexpr int kUnroll = 4;                 // vector loads in flight a lane
+// leftover (< 32) plus one step's offers (4 per lane): the buffer's size
+constexpr int kBufSlots = kWarp + 4 * kWarp;
+constexpr int kNarrowRowsPerBlock = 4;
+constexpr int kNarrowMaxWidth = 2048;
+constexpr int kWarpSliceWidth = 1024;  // least columns a warp of a wide row
+constexpr int kMaxWarpsPerRow = 8;
+
+// shared memory of one warp, in keys: its buffer, which the pairwise merge
+// of a wide row then reuses for the warp's sorted queue (32*Q keys)
+__host__ __device__ constexpr int slots_per_warp(int q) {
+  return kBufSlots > kWarp * q ? kBufSlots : kWarp * q;
+}
+
+__device__ __forceinline__ u64 make_key(float v, unsigned col) {
+  unsigned b = __float_as_uint(v);
+  b = (b == 0x80000000u) ? 0u : b;
+  const unsigned ord = b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+  return ((u64)ord << 32) | col;
+}
+
+__device__ __forceinline__ float key_value(u64 key) {
+  const unsigned ord = (unsigned)(key >> 32);
+  return __uint_as_float((ord & 0x80000000u) ? (ord ^ 0x80000000u) : ~ord);
+}
+
+__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a < b ? b : a; }
+
+// ascending bitonic sort of one key a lane across the warp
+__device__ __forceinline__ u64 warp_sort32(u64 c, int lane) {
+#pragma unroll
+  for (int size = 2; size <= kWarp; size <<= 1) {
+    const bool up = (lane & size) == 0;
+#pragma unroll
+    for (int s = size >> 1; s > 0; s >>= 1) {
+      const u64 o = __shfl_xor_sync(kFull, c, s);
+      c = (((lane & s) == 0) == up) ? kmin(c, o) : kmax(c, o);
+    }
+  }
+  return c;
+}
+
+// ascending bitonic merge of a bitonic sequence of 32*Q keys held as
+// element r*32 + lane in v[r]
+template <int Q>
+__device__ __forceinline__ void bitonic_merge(u64 (&v)[Q], int lane) {
+#pragma unroll
+  for (int sr = Q / 2; sr > 0; sr >>= 1) {
+#pragma unroll
+    for (int r = 0; r < Q; ++r) {
+      if ((r & sr) == 0) {
+        const u64 a = v[r], b = v[r + sr];
+        v[r] = kmin(a, b);
+        v[r + sr] = kmax(a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = kWarp / 2; s > 0; s >>= 1) {
+    const bool low = (lane & s) == 0;
+#pragma unroll
+    for (int r = 0; r < Q; ++r) {
+      const u64 o = __shfl_xor_sync(kFull, v[r], s);
+      v[r] = low ? kmin(v[r], o) : kmax(v[r], o);
     }
   }
 }
 
-__global__ void __launch_bounds__(kRowsPerBlock * kWarp)
-topk_smallest_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                     int* __restrict__ sel, int q, int w, int k) {
-  extern __shared__ float rows[];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + warp;
-  if (row >= q) return;  // the whole warp leaves together
+// Warp-wide selection state: the sorted queue `q` (element r*32 + lane in
+// q[r]), its admission threshold (the k-th key) and the shared-memory
+// buffer of admitted keys not yet merged.
+template <int Q>
+struct WarpSelect {
+  u64 q[Q];
+  u64 thresh;
+  float thresh_value;  // the value half of `thresh` (+inf while empty)
+  u64* buf;
+  int count;
+  int lane;
+  int k;
 
-  float* buf = rows + (size_t)warp * w;
-  const float* src = x + row * (long long)w;
-  float best_v = __int_as_float(0x7f800000);
-  int best_s = INT_MAX;
-  for (int s = lane; s < w; s += kWarp) {
-    const float v = src[s];
-    buf[s] = v;
-    if (best_s == INT_MAX || v < best_v) {
-      best_v = v;
-      best_s = s;
+  __device__ __forceinline__ void init(u64* buffer, int lane_, int k_) {
+#pragma unroll
+    for (int r = 0; r < Q; ++r) q[r] = kEmpty;
+    thresh = kEmpty;
+    thresh_value = __uint_as_float(0x7f800000u);
+    buf = buffer;
+    count = 0;
+    lane = lane_;
+    k = k_;
+  }
+
+  __device__ __forceinline__ void update_thresh() {
+    const int r = (k - 1) / kWarp;
+    u64 v = q[0];
+#pragma unroll
+    for (int i = 1; i < Q; ++i)
+      if (i == r) v = q[i];
+    thresh = __shfl_sync(kFull, v, (k - 1) % kWarp);
+    thresh_value = thresh == kEmpty ? __uint_as_float(0x7f800000u)
+                                    : key_value(thresh);
+  }
+
+  // merge one key a lane (any order; kEmpty for none) into the queue
+  __device__ __forceinline__ void merge(u64 c) {
+    c = warp_sort32(c, lane);
+    // the queue ascending, the candidates descending after it: their
+    // elementwise min holds the 32*Q smallest of both, as a bitonic run
+    const u64 rc = __shfl_sync(kFull, c, kWarp - 1 - lane);
+    q[Q - 1] = kmin(q[Q - 1], rc);
+    bitonic_merge<Q>(q, lane);
+    update_thresh();
+  }
+
+  __device__ __forceinline__ void offer(u64 key, bool valid) {
+    const bool take = valid && key < thresh;
+    const unsigned m = __ballot_sync(kFull, take);
+    if (take) buf[count + __popc(m & ((1u << lane) - 1u))] = key;
+    count += __popc(m);
+  }
+
+  // merge buffered keys 32 at a time while at least 32 wait
+  __device__ __forceinline__ void drain() {
+    while (count >= kWarp) {
+      __syncwarp();
+      const u64 c = buf[count - kWarp + lane];
+      __syncwarp();
+      count -= kWarp;
+      merge(c);
     }
   }
-  // each lane reads back only the columns it wrote itself: no barrier
+
+  __device__ __forceinline__ void flush() {
+    if (count > 0) {
+      __syncwarp();
+      const u64 c = lane < count ? buf[lane] : kEmpty;
+      __syncwarp();
+      count = 0;
+      merge(c);
+    }
+  }
+};
+
+// The (value, column) pairs of a lane's P smallest entries seen so far, in
+// key order (P = 1 or 2; column -1 for none).  Columns arrive ascending,
+// so a strict `<` keeps the lower column of equal values.
+template <int P>
+struct LaneBest {
+  float v[P];
+  int c[P];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      v[p] = __uint_as_float(0x7f800000u);
+      c[p] = -1;
+    }
+  }
+
+  __device__ __forceinline__ void push(float x, int col) {
+    if (P == 1) {
+      const bool a = x < v[0];
+      v[0] = a ? x : v[0];
+      c[0] = a ? col : c[0];
+    } else {
+      const bool a = x < v[0];
+      const bool b = x < v[P - 1];
+      v[P - 1] = a ? v[0] : (b ? x : v[P - 1]);
+      c[P - 1] = a ? c[0] : (b ? col : c[P - 1]);
+      v[0] = a ? x : v[0];
+      c[0] = a ? col : c[0];
+    }
+  }
+
+  __device__ __forceinline__ u64 key(int p) const {
+    return c[p] < 0 ? kEmpty : make_key(v[p], (unsigned)c[p]);
+  }
+
+  __device__ __forceinline__ bool holds(int col) const {
+    bool h = false;
+#pragma unroll
+    for (int p = 0; p < P; ++p) h |= col == c[p];
+    return h;
+  }
+};
+
+// This warp's slice of one row: warp `wr` of `wpr` takes the 16-byte
+// vectors wr*32 + lane, (wr + wpr)*32 + lane, ...; warp 0 also takes the
+// scalar head (columns below 16-byte alignment) and tail.  Two passes over
+// the slice: the first keeps each lane's P smallest entries and merges
+// them, which sets a threshold close to the slice's k-th key; the second
+// (from cache: the slice was just read) offers the entries below it.
+template <int Q>
+__device__ __forceinline__ void select_slice(WarpSelect<Q>& ws,
+                                             const float* row, int w,
+                                             int wr, int wpr, int lane) {
+  constexpr int P = Q == 1 ? 1 : 2;
+  const unsigned misalign = (unsigned)((size_t)row & 15u) / 4u;
+  const int head = min(w, (int)((4u - misalign) & 3u));
+  const int n4 = (w - head) / 4;
+  const int tail = w - head - 4 * n4;
+  if (wr == 0 && head + tail > 0) {
+    const bool valid = lane < head + tail;
+    const int col = lane < head ? lane : head + 4 * n4 + (lane - head);
+    const float v = valid ? row[col] : 0.0f;
+    ws.offer(make_key(v, (unsigned)col), valid);
+  }
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  const int stride = kWarp * wpr;
+  const int first = wr * kWarp;
+
+  LaneBest<P> best;
+  best.init();
+  for (int s = first; s < n4; s += kUnroll * stride) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = s + u * stride + lane;
+      v[u] = i < n4 ? __ldg(body + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = s + u * stride + lane;
+      if (i < n4) {
+        const int c0 = head + 4 * i;
+        best.push(v[u].x, c0);
+        best.push(v[u].y, c0 + 1);
+        best.push(v[u].z, c0 + 2);
+        best.push(v[u].w, c0 + 3);
+      }
+    }
+  }
+  if (first >= n4) {
+    ws.flush();
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) ws.merge(best.key(p));
+
+  for (int s = first; s < n4; s += kUnroll * stride) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = s + u * stride + lane;
+      v[u] = i < n4 ? __ldg(body + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (s + u * stride < n4) {  // the same for the whole warp
+        const int i = s + u * stride + lane;
+        const float t = ws.thresh_value;
+        const bool near = i < n4 && (v[u].x <= t || v[u].y <= t ||
+                                     v[u].z <= t || v[u].w <= t);
+        if (__any_sync(kFull, near)) {
+          const int c0 = head + 4 * i;
+          const bool ok = i < n4;
+          ws.offer(make_key(v[u].x, c0), ok && !best.holds(c0));
+          ws.offer(make_key(v[u].y, c0 + 1), ok && !best.holds(c0 + 1));
+          ws.offer(make_key(v[u].z, c0 + 2), ok && !best.holds(c0 + 2));
+          ws.offer(make_key(v[u].w, c0 + 3), ok && !best.holds(c0 + 3));
+          ws.drain();
+        }
+      }
+    }
+  }
+  ws.flush();
+}
+
+template <int Q>
+__global__ void __launch_bounds__(kMaxWarpsPerRow * kWarp)
+topk_smallest_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                     int* __restrict__ sel, int q, int w, int k, int wpr) {
+  constexpr int kSlots = slots_per_warp(Q);
+  extern __shared__ u64 smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int rows_per_block = blockDim.x / (kWarp * wpr);
+  const int wr = warp % wpr;
+  const long long row = (long long)blockIdx.x * rows_per_block + warp / wpr;
+  // only narrow blocks (wpr == 1) hold rows past the end, and they never
+  // reach a block barrier
+  if (row >= q) return;
+
+  u64* mine = smem + (size_t)warp * kSlots;
+  const float* src = x + row * (long long)w;
+  WarpSelect<Q> ws;
+  ws.init(mine, lane, k);
+  select_slice<Q>(ws, src, w, wr, wpr, lane);
+
+  if (wpr > 1) {
+    // pairwise merge of the warps' sorted queues: the first list ascending
+    // against the second read backwards gives the 32*Q smallest of both
+#pragma unroll
+    for (int r = 0; r < Q; ++r) mine[r * kWarp + lane] = ws.q[r];
+    __syncthreads();
+    for (int l = 1; l < wpr; l <<= 1) {
+      if (wr % (2 * l) == 0) {
+        const u64* other = mine + (size_t)l * kSlots;
+#pragma unroll
+        for (int r = 0; r < Q; ++r)
+          ws.q[r] = kmin(ws.q[r], other[kWarp * Q - 1 - (r * kWarp + lane)]);
+        bitonic_merge<Q>(ws.q, lane);
+#pragma unroll
+        for (int r = 0; r < Q; ++r) mine[r * kWarp + lane] = ws.q[r];
+      }
+      __syncthreads();
+    }
+  }
+  if (wr != 0) return;
 
   float* out_v = vals + row * (long long)k;
   int* out_s = sel + row * (long long)k;
-  for (int j = 0; j < k; ++j) {
-    float m_v = best_v;
-    int m_s = best_s;
 #pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1) {
-      const float o_v = __shfl_xor_sync(kFullMask, m_v, off);
-      const int o_s = __shfl_xor_sync(kFullMask, m_s, off);
-      if (o_v < m_v || (o_v == m_v && o_s < m_s)) {
-        m_v = o_v;
-        m_s = o_s;
+  for (int r = 0; r < Q; ++r) {
+    const int j = r * kWarp + lane;
+    if (j < k) {
+      const unsigned ord = (unsigned)(ws.q[r] >> 32);
+      const unsigned col = (unsigned)ws.q[r];
+      if (ord >= kInfOrd) {  // the TPU kernel's caveat
+        out_v[j] = __uint_as_float(0x7f800000u);
+        out_s[j] = 0;
+      } else {
+        out_v[j] = src[col];  // the input's own bits (-0 stays -0)
+        out_s[j] = (int)col;
       }
     }
-    // every lane now holds the same (value, slot): a total order
-    if (lane == (j & (kWarp - 1))) {
-      out_v[j] = m_v;
-      out_s[j] = m_s;
-    }
-    if ((m_s & (kWarp - 1)) == lane) {
-      buf[m_s] = __int_as_float(0x7f800000);
-      lane_min(buf, w, lane, best_v, best_s);
-    }
   }
+}
+
+template <int Q>
+cudaError_t launch(const float* x, float* vals, int* sel, int q, int w,
+                   int k, cudaStream_t stream) {
+  constexpr int kSlots = slots_per_warp(Q);
+  int wpr = 1;
+  if (w > kNarrowMaxWidth)
+    while (wpr < kMaxWarpsPerRow && 2 * wpr * kWarpSliceWidth <= w) wpr *= 2;
+  const int threads = wpr == 1 ? kNarrowRowsPerBlock * kWarp : wpr * kWarp;
+  const int rows_per_block = threads / (kWarp * wpr);
+  const unsigned blocks =
+      (unsigned)((q + (long long)rows_per_block - 1) / rows_per_block);
+  const size_t smem = (size_t)(threads / kWarp) * kSlots * sizeof(u64);
+  topk_smallest_kernel<Q><<<blocks, threads, smem, stream>>>(x, vals, sel, q,
+                                                             w, k, wpr);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x [q, w] float32, vals [q, k] float32, sel [q, k] int32, all contiguous on
-// the current device; launches on `stream` and returns cudaGetLastError().
+// the current device; 1 <= k <= min(w, 256).  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int topk_smallest_f32(const void* x, void* vals, void* sel, int q,
                                  int w, int k, void* stream) {
-  if (q <= 0 || w <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kRowsPerBlock * w * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        topk_smallest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned blocks = (unsigned)((q + kRowsPerBlock - 1) / kRowsPerBlock);
-  topk_smallest_kernel<<<blocks, kRowsPerBlock * kWarp, smem,
-                         (cudaStream_t)stream>>>(
-      (const float*)x, (float*)vals, (int*)sel, q, w, k);
-  return (int)cudaGetLastError();
+  if (q <= 0 || w <= 0 || k <= 0 || k > w || k > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  float* vf = (float*)vals;
+  int* sf = (int*)sel;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (k <= 32)
+    e = launch<1>(xf, vf, sf, q, w, k, st);
+  else if (k <= 64)
+    e = launch<2>(xf, vf, sf, q, w, k, st);
+  else if (k <= 128)
+    e = launch<4>(xf, vf, sf, q, w, k, st);
+  else
+    e = launch<8>(xf, vf, sf, q, w, k, st);
+  return (int)e;
 }

@@ -5,9 +5,10 @@ both emit the canonical ascending ``(distance², index)`` order, so their
 results are bitwise equal wherever both are exact:
 
 - **Full scan** (:func:`_search`): every point is scored by
-  ``|p|² − 2 q·p``, the ``k + 8`` best by score are kept (ties to the lower
-  index, through a stable sort), then re-ranked by the plain f32 delta-sum
-  distance and sorted canonically.  The score's dot product is written as
+  ``|p|² − 2 q·p``, the ``k + 8`` best by score of each point tile and then
+  of all tiles are kept (ties to the lower index) by the ``topk_smallest``
+  kernel, then re-ranked by the plain f32 delta-sum distance and sorted
+  canonically.  The score's dot product is written as
   ``d`` elementwise products, so no matrix unit (and no TF32 rounding) is
   involved, and the result is the same on every device.
 - **Dilated bucket grid** (``_build_grid`` / :func:`_dilated_topk`): each
@@ -39,6 +40,8 @@ from . import topk as _topk
 
 DEFAULT_TILE_N = 16384
 DEFAULT_TILE_Q = 1024
+# largest k a query takes: the full scan keeps k + 8 candidates per tile
+MAX_K = _topk.MAX_K - 8
 # rows of the dilated-layout build processed at once (bounds the
 # [block, 3^d·C, d] sort transients)
 _DILATE_BLOCK = 8192
@@ -108,32 +111,46 @@ def _idw(sq: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return w / _rowsum(w)[:, None]
 
 
+def _tile_select(q, points, points_sq, t0: int, tile_n: int, kk: int):
+    """The ``kk`` best points of the tile at ``t0`` for each query by the
+    ranking score ``|p|² − 2 q·p`` (monotone in the distance per query),
+    ascending, ties to the lower index: ``(score [Q, kk], idx [Q, kk]
+    int64)``.  Entries scored +inf (pad rows) carry the tile's column 0
+    (the selection kernel's caveat); :func:`_search` maps them to a pad."""
+    p = points[t0:t0 + tile_n]
+    dot = q[:, None, 0] * p[None, :, 0]
+    for a in range(1, p.shape[1]):
+        dot = dot + q[:, None, a] * p[None, :, a]
+    score = points_sq[None, t0:t0 + tile_n] - 2.0 * dot
+    s, sel = _topk.topk_smallest(score, min(kk, score.shape[1]))
+    return s, sel.long() + t0
+
+
 def _search(queries, points, points_sq, k: int, tile_n: int, tile_q: int):
     """Exact top-k of ``queries [Q, d]`` over ``points [N, d]`` (N a multiple
     of ``tile_n``; pad rows carry ``points_sq = +inf``).  Returns
     ``(sq [Q, k] f32, idx [Q, k] int64)`` in canonical order."""
-    n, d = points.shape
+    n = points.shape[0]
     kk = min(k + 8, n)
+    # the last row is always a pad: +inf-scored candidates point there, so
+    # their exact distance is +inf too and they rank after every real point
+    pad = n - 1
     sq_out, idx_out = [], []
     for lo in range(0, queries.shape[0], tile_q):
         q = queries[lo:lo + tile_q]
         cand_s, cand_i = [], []
         for t0 in range(0, n, tile_n):
-            p = points[t0:t0 + tile_n]
-            dot = q[:, None, 0] * p[None, :, 0]
-            for a in range(1, d):
-                dot = dot + q[:, None, a] * p[None, :, a]
-            # ranking score |p|² - 2 q·p, monotone in the distance per query
-            score = points_sq[None, t0:t0 + tile_n] - 2.0 * dot
-            s, o = torch.sort(score, dim=1, stable=True)
-            cand_s.append(s[:, :kk])
-            cand_i.append(o[:, :kk] + t0)
+            s, i = _tile_select(q, points, points_sq, t0, tile_n, kk)
+            cand_s.append(s)
+            cand_i.append(i)
         if len(cand_s) > 1:
-            # tiles in ascending order: equal scores keep the lower index
-            s, o = torch.sort(torch.cat(cand_s, dim=1), dim=1, stable=True)
-            best = torch.gather(torch.cat(cand_i, dim=1), 1, o[:, :kk])
+            # the kk best of the tiles' candidates; tiles are in ascending
+            # order, so equal scores keep the lower index
+            s, sel = _topk.topk_smallest(torch.cat(cand_s, dim=1), kk)
+            best = torch.gather(torch.cat(cand_i, dim=1), 1, sel.long())
         else:
-            best = cand_i[0]
+            s, best = cand_s[0], cand_i[0]
+        best = best.masked_fill(s == float("inf"), pad)
         # exact distances of the widened set, canonical re-rank, keep k
         sq = _sqsum(q[:, None, :] - points[best])
         sq, best = _sort_neighbors(sq, best)
@@ -576,6 +593,10 @@ class KNNIndex:
         if not 1 <= k <= self.n_points:
             raise ValueError(f"k={k} must lie in [1, {self.n_points}] (the "
                              f"number of indexed points).")
+        if k > MAX_K:
+            raise ValueError(f"k={k} exceeds {MAX_K}: the full scan selects "
+                             f"k + 8 candidates, and the topk_smallest "
+                             f"kernel takes at most {_topk.MAX_K}.")
 
     # ------------------------------------------------------------------ #
     # public API                                                         #

@@ -1,5 +1,6 @@
 """k smallest values per row with canonical ties: the selection kernel of
-the dilated-grid kNN.
+the dilated-grid kNN and of the full scan (per score tile and over the
+tiles' merged candidates).
 
 Port of the JAX package's Pallas kernel ``ops/pallas_topk.py:topk_smallest``.
 On the index-sorted dilated rows, "ties go to the lowest column" IS the
@@ -11,9 +12,12 @@ tie order on CUDA and is never used for it.
   hand-written kernel ``csrc/topk_smallest.cu`` (built at first use by
   ``_build.py``) or the call raises; a CPU tensor goes to the plain
   version.  There is no fallback from one to the other.
-- :func:`topk_smallest_plain` is the plain PyTorch version, the same
-  iterative min extraction as the Pallas body (``pallas_topk.py:36-45``).
+- :func:`topk_smallest_plain` is the plain PyTorch version: one stable
+  sort, the first k columns, and the Pallas kernel's caveat applied after.
 - ``launches`` counts the kernel launches, and nothing else.
+
+Limits, on every device: ``1 <= k <= min(W, MAX_K)``.  The kernel's warp
+queue holds at most ``MAX_K`` keys; ``lax.top_k`` refuses ``k > W`` too.
 """
 import ctypes
 
@@ -23,37 +27,43 @@ import torch
 launches = 0
 
 _KERNEL = "topk_smallest"
+# the kernel's compile-time queue size (``kMaxK`` in csrc/topk_smallest.cu)
+MAX_K = 256
 
 
 def topk_smallest_plain(x: torch.Tensor, k: int):
     """``(vals [Q, k] f32, sel [Q, k] int32)``: the k smallest of each row of
     ``x [Q, W]`` in ascending order, ties to the lowest column, values bit
-    for bit.  k rounds of: row min, its first column (min over a masked
-    iota), overwrite that column with +inf.  A row with fewer than k finite
-    entries repeats the lowest column holding +inf (the Pallas kernel's
-    caveat, ``pallas_topk.py:67-74``)."""
-    q, w = x.shape
-    iota = torch.arange(w, device=x.device, dtype=torch.int32).expand(q, w)
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    wide = torch.tensor(w, dtype=torch.int32, device=x.device)
-    vals = torch.empty((q, k), dtype=x.dtype, device=x.device)
-    sel = torch.empty((q, k), dtype=torch.int32, device=x.device)
-    for j in range(k):
-        m = x.min(dim=1).values
-        am = torch.where(x == m[:, None], iota, wide).min(dim=1).values
-        vals[:, j] = m
-        sel[:, j] = am
-        x = torch.where(iota == am[:, None], inf, x)
+    for bit, through one stable sort.  The Pallas kernel extracts by
+    overwriting each winner with +inf, so once a row's entries below +inf
+    run out the whole row is +inf and every further output is column 0:
+    every +inf output here takes column 0 too (``pallas_topk.py:67-74``)."""
+    vals, order = torch.sort(x, dim=1, stable=True)
+    vals = vals[:, :k].contiguous()
+    sel = order[:, :k].to(torch.int32)
+    sel.masked_fill_(vals == float("inf"), 0)
     return vals, sel
 
 
+_entry = None
+
+
+def _kernel_entry():
+    """The C entry point of the built kernel, its argument types set."""
+    global _entry
+    if _entry is None:
+        from .. import _build
+        fn = _build.load(_KERNEL).topk_smallest_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entry = fn
+    return _entry
+
+
 def _launch(x: torch.Tensor, k: int):
-    from .. import _build
-    lib = _build.load(_KERNEL)
-    fn = lib.topk_smallest_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel_entry()
     q, w = x.shape
     vals = torch.empty((q, k), dtype=torch.float32, device=x.device)
     sel = torch.empty((q, k), dtype=torch.int32, device=x.device)
@@ -81,9 +91,11 @@ def topk_smallest(x: torch.Tensor, k: int):
     if x.dtype != torch.float32:
         raise TypeError(f"topk_smallest expects float32, got {x.dtype}")
     q, w = x.shape
-    if k < 1 or w < 1:
-        raise ValueError(f"topk_smallest needs k >= 1 and W >= 1 "
-                         f"(k={k}, W={w})")
+    if not 1 <= k <= w:
+        raise ValueError(f"topk_smallest needs 1 <= k <= W (k={k}, W={w})")
+    if k > MAX_K:
+        raise ValueError(f"topk_smallest takes k <= {MAX_K}, the kernel's "
+                         f"queue size (k={k})")
     if x.device.type == "cpu":
         return topk_smallest_plain(x, k)
     if x.device.type != "cuda":

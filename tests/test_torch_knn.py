@@ -128,13 +128,19 @@ def test_delta_sum_bitwise_equals_jitted_jnp_sum(d):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("d", [2, 3])
-def test_full_scan_search_matches_jax(d):
+@pytest.mark.parametrize("d,n", [(2, 3000), (3, 3000), (2, 2 * 1024 + 5),
+                                 (3, 26 + 3)],
+                         ids=["2d", "3d", "2d-short-last-tile",
+                              "3d-one-tile-k+3-points"])
+def test_full_scan_search_matches_jax(d, n):
+    """Tiles of 1024; the short-tile clouds hold fewer than k + 8 real
+    points in a tile, so +inf pad scores reach the selection."""
     rng = np.random.default_rng(10 + d)
-    n, k = 3000, 8 if d == 2 else 26
-    pts = np.full((3072, d), 1e30, dtype=np.float32)
+    k = 8 if d == 2 else 26
+    n_pad = -(-(n + 1) // 1024) * 1024
+    pts = np.full((n_pad, d), 1e30, dtype=np.float32)
     pts[:n] = rng.uniform(-1, 1, size=(n, d))
-    sq = np.full(3072, np.inf, dtype=np.float32)
+    sq = np.full(n_pad, np.inf, dtype=np.float32)
     sq[:n] = (pts[:n].astype(np.float64) ** 2).sum(1)
     q = rng.uniform(-1.1, 1.1, size=(256, d)).astype(np.float32)
     search = jax.jit(partial(jknn._search, k=k, tile_n=1024, tile_q=128))
@@ -145,6 +151,7 @@ def test_full_scan_search_matches_jax(d):
                              torch.from_numpy(sq), k, 1024, 128)
     np.testing.assert_array_equal(tidx.numpy(), jidx)
     np.testing.assert_array_equal(tsq.numpy(), jsq)
+    assert (tidx.numpy() < n).all()
 
 
 def test_k_out_of_range_raises():
@@ -152,3 +159,10 @@ def test_k_out_of_range_raises():
                       device="cpu")
     with pytest.raises(ValueError):
         t.query(np.zeros((1, 2)), 51)
+
+
+def test_k_above_selection_limit_raises():
+    t = tknn.KNNIndex(np.random.default_rng(0).uniform(size=(400, 2)),
+                      device="cpu")
+    with pytest.raises(ValueError, match=str(tknn.MAX_K)):
+        t.query(np.zeros((1, 2)), tknn.MAX_K + 1)

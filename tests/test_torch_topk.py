@@ -35,7 +35,10 @@ def _tie_laden(q, w, seed):
     (96, 160, 9, 11),
     (64, 576, 8, 1),
     (72, 864, 26, 2),
-], ids=["test_ops-input-k9", "2d-width-k8", "3d-width-k26"])
+    (64, 2048, 34, 4),
+    (32, 1054, 34, 6),
+], ids=["test_ops-input-k9", "2d-width-k8", "3d-width-k26",
+        "wide-tie-laden-k34", "full-scan-merge-width-k34"])
 def test_plain_matches_pallas_interpret(q, w, k, seed):
     x = _tie_laden(q, w, seed)
     jv, js = jax_topk_smallest(jnp.asarray(x), k, interpret=True)
@@ -57,24 +60,28 @@ def test_cpu_wrapper_is_plain_and_counts_no_launch():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("bad,exc", [
-    (lambda: torch.zeros(4, 8, 2), ValueError),
-    (lambda: torch.zeros(4, 8, dtype=torch.float64), TypeError),
-    (lambda: torch.zeros(4, 0), ValueError),
-], ids=["rank", "dtype", "empty-width"])
-def test_wrapper_rejects_bad_input(bad, exc):
-    with pytest.raises(exc):
-        topk.topk_smallest(bad(), 4)
+@pytest.mark.parametrize("bad,k,exc", [
+    (lambda: torch.zeros(4, 8, 2), 4, ValueError),
+    (lambda: torch.zeros(4, 8, dtype=torch.float64), 4, TypeError),
+    (lambda: torch.zeros(4, 0), 4, ValueError),
+    (lambda: torch.zeros(4, 8), 9, ValueError),
+    (lambda: torch.zeros(4, 1000), topk.MAX_K + 1, ValueError),
+], ids=["rank", "dtype", "empty-width", "k-above-width", "k-above-max"])
+def test_wrapper_rejects_bad_input(bad, k, exc):
+    with pytest.raises(exc, match=str(topk.MAX_K) if k > topk.MAX_K else None):
+        topk.topk_smallest(bad(), k)
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("q,w,k", [(4096, 864, 26), (1024, 16384, 34)],
+                         ids=["epoch-k26", "full-scan-tile-k34"])
+def test_kernel_matches_plain_on_card(q, w, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    x = torch.from_numpy(_tie_laden(4096, 864, 5)).cuda()
+    x = torch.from_numpy(_tie_laden(q, w, 5)).cuda()
     before = topk.launches
-    kv, ks = topk.topk_smallest(x, 26)
-    pv, ps = topk.topk_smallest_plain(x, 26)
+    kv, ks = topk.topk_smallest(x, k)
+    pv, ps = topk.topk_smallest_plain(x, k)
     torch.cuda.synchronize()
     assert topk.launches == before + 1
     assert torch.equal(kv, pv) and torch.equal(ks, ps)
