@@ -32,23 +32,35 @@ Phases:
   snapshots exported through ``ExportData.export`` and the HDF5 file read
   back (where h5py is installed; else through ``ExportData.interpolate``,
   the same interpolation without the write), and 2 000 cells checked
-  against a float64 k-d-tree IDW reference; then, outside the timed walls,
-  a ``torch.profiler`` window over one full-scan call of 4 query blocks on
-  the same cloud, printing the five device operations with the most time;
+  against a float64 k-d-tree IDW reference; the grid must have 151 557
+  cells after 43 iterations.  The phase prints the epoch counters (queries
+  the in-epoch ring and full-scan rescue answered, cells escalated to the
+  host, host ring passes, cells left to the full scan) and walls.  Then,
+  outside the timed walls, ``torch.profiler`` windows over one grid epoch
+  of the 4 096 alive cells nearest the obstacle's axis and over one
+  full-scan call of 4 query blocks, each printing the five device
+  operations with the most time;
 - ``grid2d_metric``: a 250 000-point 2D channel cloud with a circular
   obstacle in captured-metric mode (``min_metric=0.75``): the k=8 kernel
-  and the metric stopping rule;
+  and the metric stopping rule; 50 263 cells after 67 iterations;
 - ``cuda_vs_cpu``: one 60 000-point 3D grid-path case on the card and on
-  the CPU; the (level, centre) sets and iteration counts must be identical.
+  the CPU; the (level, centre) sets and iteration counts must be identical;
+- ``blocked_layout``: the same case on the card again with
+  ``KNNIndex.DIL_MAX_BYTES = 0``, so every epoch and ring runs on the
+  blocked layout; its grid must equal the dilated run's;
+- ``large_k``: ``KNNIndex.query(q, 300)`` on a 40 000-point cloud on the
+  card against the CPU, bitwise, through the full scan's stable-sort
+  selections (k + 8 is above the kernel's queue).
 
 The launch counters are set to 0 just before each main-path run and read
 just after it; every main-path run must have launched every kernel, from
-each of its call sites (the grid selection, the full scan's per-tile
-selection and its merge), and the sites' launches must add up to the
-kernel's counter.  The largest kernel input each call site got in
-a main-path run is held (a reference, not a copy) and, after the run,
-compared and timed again, so the reported times are at the shapes the main
-path gives the kernel.
+each of its required call sites (the grid selection, the ring's, the full
+scan's per-tile selection and its merge; the blocked layout's in the
+``blocked_layout`` run), the sites' launches must add up to the kernel's
+counter, and no selection may have gone to the stable sort.  The largest
+kernel input each call site got in a main-path run is held (a reference,
+not a copy) and, after the run, compared and timed again, so the reported
+times are at the shapes the main path gives the kernel.
 """
 import importlib.util
 import json
@@ -197,9 +209,23 @@ def phase_kernel() -> dict:
 
 
 # the kNN function that calls the kernel → its call site's name (the full
-# scan's merge selects in ``_search`` itself)
+# scan's merge selects in ``_search`` itself); ``_topk_canonical`` selects
+# for ``_blocked_topk``, whose radius tells the two sites apart
 SITES = {"_dilated_select": "grid_select", "_tile_select": "full_scan_tile",
          "_search": "full_scan_merge"}
+RING, BLOCKED = "ring_select", "blocked_select"
+# the sites every run of a phase must have launched from
+MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
+# (cells, iterations) of each grid phase's workload, the same whichever
+# exact route answers each query
+EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67)}
+
+
+def site_of(frame) -> str:
+    name = frame.f_code.co_name
+    if name == "_topk_canonical":
+        return RING if frame.f_back.f_locals["radius"] > 1 else BLOCKED
+    return SITES.get(name, name)
 
 
 class KernelTap:
@@ -208,18 +234,21 @@ class KernelTap:
     module function the kNN calls).  A site's count is what the wrapper's
     own launch counter gained during the site's calls.  It keeps
     references, not copies, so the run's walls carry no extra work: each
-    input is a fresh tensor that nothing writes to after the selection."""
+    input is a fresh tensor that nothing writes to after the selection.
+    It also counts the calls of ``_select_sorted``, the stable sort that
+    takes selections wider than the kernel's queue."""
 
     def __init__(self):
-        from sparsespatialsampling_torch.ops import topk
-        self._topk = topk
+        from sparsespatialsampling_torch.ops import knn, topk
+        self._topk, self._knn = topk, knn
         self._orig = topk.topk_smallest
+        self._orig_sorted = knn._select_sorted
         self.inputs, self.launches = {}, {}
+        self.sorted_calls = 0
 
     def __enter__(self):
         def tapped(x, k):
-            caller = sys._getframe(1).f_code.co_name
-            site = SITES.get(caller, caller)
+            site = site_of(sys._getframe(1))
             held = self.inputs.get(site)
             if held is None or x.numel() > held[0].numel():
                 self.inputs[site] = (x, k)
@@ -228,11 +257,17 @@ class KernelTap:
             self.launches[site] = (self.launches.get(site, 0)
                                    + self._topk.launches - before)
             return out
+
+        def sorted_tapped(x, kk):
+            self.sorted_calls += 1
+            return self._orig_sorted(x, kk)
         self._topk.topk_smallest = tapped
+        self._knn._select_sorted = sorted_tapped
         return self
 
     def __exit__(self, *exc):
         self._topk.topk_smallest = self._orig
+        self._knn._select_sorted = self._orig_sorted
 
 
 def reset_counts() -> None:
@@ -280,12 +315,20 @@ def grid_summary(s3, phase_t: dict) -> dict:
     return {"n_cells": int(info["n_cells"]),
             "iterations": int(info["iterations"]),
             "captured_metric": float(info["metric_per_iter"][-1]),
-            "bad_cells_to_full_scan": int(st["n_bad_cells"]),
+            "ring_queries": int(st["ring_queries"]),
+            "rescued_queries": int(st["rescued_queries"]),
+            "bad_cells_escalated": int(st["n_bad_cells"]),
+            "n_calls_ring": int(st["n_calls_ring"]),
+            "bad_cells_to_full_scan": int(st["full_scan_cells"]),
             "epoch_queries": int(st["queries"]),
             "epoch_passes": {"grid_or_main": int(st["n_calls_main"]),
+                             "host_ring": int(st["n_calls_ring"]),
                              "full_scan_retry": int(st["n_calls_full"])},
             "epoch_wall_s": float(st["wall_s"]),
             "retry_wall_s": float(st["t_retry_s"]),
+            "adaptive_split_s": {key: float(v) for key, v in
+                                 info["adaptive_split"].items()
+                                 if key != "n_iter"},
             "max_level": int(info["max_level"]),
             "wall_s": {"init": phase_t["init"],
                        "uniform": float(info["t_uniform"]),
@@ -335,12 +378,16 @@ def check_export(tmp: str, name: str, xyz, snaps, s3, field,
 
 def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
              **kw) -> tuple:
+    """One grid generation (and export) through the public entry points.
+    Returns ``(s3, export, field, walls, tree)``; ``tree`` is the engine,
+    which ``execute_grid_generation`` detaches from ``s3``."""
     from sparsespatialsampling_torch import SparseSpatialSampling, ExportData
     t = {}
     t0 = time.perf_counter()
     s3 = SparseSpatialSampling(pts, metric, geometries, save_path=tmp,
                                save_name=name, device=device, **kw)
     t["init"] = time.perf_counter() - t0
+    tree = s3._sampling
     s3.execute_grid_generation()
     t["refine"] = time.perf_counter() - t0
     exp = field = None
@@ -356,21 +403,22 @@ def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
         if device == "cuda":
             torch.cuda.synchronize()
         t["export"] = time.perf_counter() - t1
-    return s3, exp, field, t
+    return s3, exp, field, t, tree
 
 
 def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
-                  export=None, **kw):
+                  export=None, sites=MAIN_SITES, **kw):
     """One main-path run with the counters set to 0 just before it and read
-    just after; every kernel must have launched."""
+    just after; every kernel, and each of ``sites``, must have launched,
+    and no selection may have taken the stable sort."""
     with KernelTap() as tap:
         reset_counts()
-        s3, exp, field, t = run_grid(tmp, name, pts, metric, geometries,
-                                     export, **kw)
+        s3, exp, field, t, tree = run_grid(tmp, name, pts, metric,
+                                           geometries, export, **kw)
         torch.cuda.synchronize()
         counts = read_counts()
     missing = [n for n, c in counts.items() if c == 0]
-    missing += [s for s in SITES.values() if not tap.launches.get(s)]
+    missing += [s for s in sites if not tap.launches.get(s)]
     if missing:
         raise AssertionError(f"{phase}: kernels or call sites never "
                              f"launched on the main path: {missing}")
@@ -378,7 +426,20 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
         raise AssertionError(f"{phase}: launches per call site "
                              f"{tap.launches} do not add up to the kernel's "
                              f"count {counts['topk_smallest']}")
-    return s3, exp, field, t, counts, tap
+    if tap.sorted_calls:
+        raise AssertionError(f"{phase}: {tap.sorted_calls} selections took "
+                             f"the stable sort on the main path")
+    return s3, exp, field, t, counts, tap, tree
+
+
+def check_expected(phase: str, out: dict) -> None:
+    """The grid must have the workload's known cells and iterations: the
+    ring, the rescue and the full scan emit the same exact answers, so
+    which of them answers a query may move no cell."""
+    got = (out["n_cells"], out["iterations"])
+    if got != EXPECTED[phase]:
+        raise AssertionError(f"{phase}: {got[0]} cells after {got[1]} "
+                             f"iterations, expected {EXPECTED[phase]}")
 
 
 def check_sites(tap) -> dict:
@@ -400,36 +461,86 @@ def device_ms(event) -> float:
     return 0.0
 
 
-def profile_full_scan(index, bounds) -> dict:
-    """``torch.profiler`` over one full-scan call of 4 query blocks on the
-    grid3d cloud: the five device operations with the most time."""
-    from sparsespatialsampling_torch.ops import knn
-    rng = np.random.default_rng(6)
-    queries = rng.uniform(bounds[0], bounds[1], size=(4 * index._tile_q, 3))
-    q = index._queries_f32(queries - index._shift)
-
-    def call():
-        return knn._search(q, index._points, index._points_sq, 26,
-                           index._tile_n, index._tile_q)
+def timed_call(call) -> float:
+    """Host-clock seconds of one ``call()`` up to the card's last kernel."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     call()
     torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile_window(call) -> dict:
+    """One ``call()`` timed after a warm-up call (``wall_s``), then
+    ``torch.profiler`` over one more: the device time it holds and the
+    five device operations with the most time."""
+    call()
+    out = {"wall_s": timed_call(call)}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         call()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     rows = sorted(prof.key_averages(), key=device_ms, reverse=True)
     total = sum(device_ms(e) for e in rows)
-    out = {"n_queries": int(q.shape[0]), "wall_s_profiled": wall,
-           "device_ms_total": total}
+    out["device_ms_total"] = total
     if total == 0.0:
         out["note"] = "key_averages() shows no device time"
         return out
     out["top5"] = [{"name": e.key, "device_ms": device_ms(e),
                     "count": e.count} for e in rows[:5]]
     return out
+
+
+def profile_full_scan(index, bounds) -> dict:
+    """One full-scan call of 4 query blocks on the grid3d cloud."""
+    from sparsespatialsampling_torch.ops import knn
+    rng = np.random.default_rng(6)
+    queries = rng.uniform(bounds[0], bounds[1], size=(4 * index._tile_q, 3))
+    q = index._queries_f32(queries - index._shift)
+    return {"n_queries": int(q.shape[0]), **profile_window(
+        lambda: knn._search(q, index._points, index._points_sq, 26,
+                            index._tile_n, index._tile_q))}
+
+
+def profile_epoch(tree, axis_xy, n_cells: int = 4096) -> dict:
+    """One grid epoch pass (grid query, ring, rescue, IDW, gain) over the
+    ``n_cells`` alive cells of the finished grid3d tree nearest the cloud's
+    cylindrical hole, whose queries the ring answers.  Each pass adds to
+    the tree's counters; ``ring_queries`` is one pass's."""
+    alive = tree._alive_idx()
+    centers = tree._centers_of(tree._coords[alive], tree._level[alive])
+    near = np.argsort(np.linalg.norm(centers[:, :2] - axis_xy, axis=1),
+                      kind="stable")[:n_cells]
+    cells = np.sort(alive[near])
+    st = tree._epoch_stats
+    before = st["ring_queries"]
+    out = {"n_cells": int(cells.size),
+           **profile_window(lambda: tree._epoch(cells, "grid"))}
+    out["ring_queries"] = (st["ring_queries"] - before) // 3
+    return out
+
+
+def weights_rerun(s3) -> dict:
+    """The export's kNN weights of every cell centre again, warm: the grid
+    query alone, the full scan of its rejected rows alone, and the whole
+    ``weights_device`` call."""
+    from sparsespatialsampling_torch.ops import knn
+    index = s3._knn_index
+    q = np.asarray(s3.centers, dtype=np.float64) - index._shift
+    qf, chunk = index._queries_f32(q), index._grid_chunk
+
+    def grid_only():
+        return [knn._dilated_topk(qf[lo:lo + chunk], index._grid, 26)
+                for lo in range(0, qf.shape[0], chunk)]
+    ok = torch.cat([r[3] for r in grid_only()])
+    bad = torch.nonzero(~ok).flatten().cpu().numpy()
+    return {"grid_query_s": timed_call(grid_only),
+            "full_scan_fallback_s": timed_call(
+                lambda: index._full_scan(q[bad], 26, "query")),
+            "weights_device_s": timed_call(
+                lambda: index.weights_device(s3.centers, 26)),
+            "fallback_rows": int(bad.size)}
 
 
 def phase_grid3d(tmp: str) -> tuple:
@@ -443,7 +554,7 @@ def phase_grid3d(tmp: str) -> tuple:
     snaps = (metric[:, None]
              * (1 + 0.2 * np.sin(phases)[None, :])).astype(np.float32)
     times = [f"{t:.4f}" for t in np.arange(n_snap) * 5e-4]
-    s3, exp, field, t, counts, tap = main_path_run(
+    s3, exp, field, t, counts, tap, tree = main_path_run(
         "grid3d", tmp, "c3d", xyz, metric, geometries, export=(snaps, times),
         uniform_levels=5, n_cells_max=150_000)
     out = {"phase": "grid3d", "n_points": int(xyz.shape[0]),
@@ -453,7 +564,10 @@ def phase_grid3d(tmp: str) -> tuple:
                "t_weights", "t_metric", "t_kernel", "t_h5")},
            "launches": counts,
            **check_export(tmp, "c3d", xyz, snaps, s3, field, n_snap)}
+    check_expected("grid3d", out)
     out["kernel_at_call_sites"] = check_sites(tap)
+    out["export_weights_rerun"] = weights_rerun(s3)
+    out["profile_epoch"] = profile_epoch(tree, np.array([0.2, 0.2]))
     out["profile_full_scan"] = profile_full_scan(s3._knn_index, bounds)
     return out, counts
 
@@ -464,11 +578,13 @@ def phase_grid2d_metric(tmp: str) -> tuple:
     geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
                   SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
                                  refine=True, min_refinement_level=9)]
-    s3, _, _, t, counts, tap = main_path_run(
+    # no export here, and the ring may leave the full scan nothing to do
+    s3, _, _, t, counts, tap, _ = main_path_run(
         "grid2d_metric", tmp, "c2d", xy, metric, geometries,
-        uniform_levels=5, min_metric=0.75)
+        sites=("grid_select", RING), uniform_levels=5, min_metric=0.75)
     out = {"phase": "grid2d_metric", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts}
+    check_expected("grid2d_metric", out)
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
 
@@ -509,33 +625,114 @@ def phase_full_scan() -> dict:
     return out
 
 
-def phase_cuda_vs_cpu(tmp: str) -> dict:
+def compare_case():
+    """The 60 000-point 3D case of ``cuda_vs_cpu`` and ``blocked_layout``:
+    ``(points, metric, geometries, grid arguments)``."""
     from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
     xyz, metric, bounds = cylinder_wake_3d(60_000, seed=2)
     geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
                   SphereGeometry("hole", False, [0.2, 0.2, 0.2], 0.05)]
-    keys, out = {}, {"phase": "cuda_vs_cpu", "n_points": 60_000}
-    for dev in ("cuda", "cpu"):
-        s3, _, _, t = run_grid(tmp, f"cmp_{dev}", xyz, metric, geometries,
-                            device=dev, uniform_levels=4, n_cells_max=8000)
-        lv = np.asarray(s3.levels).ravel()
-        order = np.lexsort((lv,) + tuple(s3.centers.T))
-        keys[dev] = (lv[order], s3.centers[order],
-                     s3.data_final_mesh["iterations"],
-                     np.asarray(s3.data_final_mesh["metric_per_iter"]))
-        out[dev] = {"n_cells": int(lv.size), "iterations": keys[dev][2],
-                    "bad_cells_to_full_scan":
-                        int(s3.data_final_mesh["epoch_stats"]["n_bad_cells"]),
-                    "refine_s": t["refine"]}
-    (la, ca, ia, ma), (lb, cb, ib, mb) = keys["cuda"], keys["cpu"]
+    return xyz, metric, geometries, {"uniform_levels": 4, "n_cells_max": 8000}
+
+
+def grid_key(s3) -> tuple:
+    """``(levels, centres, iterations, metric trace)``, cells lexsorted."""
+    lv = np.asarray(s3.levels).ravel()
+    order = np.lexsort((lv,) + tuple(s3.centers.T))
+    return (lv[order], s3.centers[order], s3.data_final_mesh["iterations"],
+            np.asarray(s3.data_final_mesh["metric_per_iter"]))
+
+
+def compare_grids(what: str, a: tuple, b: tuple) -> dict:
+    (la, ca, ia, ma), (lb, cb, ib, mb) = a, b
     same = (la.shape == lb.shape and np.array_equal(la, lb)
             and np.array_equal(ca, cb) and ia == ib)
     if not same:
-        raise AssertionError(f"cuda and cpu grids differ: cells "
-                             f"{la.size} vs {lb.size}, iterations {ia} vs "
-                             f"{ib}")
-    out["identical"] = True
-    out["metric_trace_max_abs_diff"] = float(np.abs(ma - mb).max())
+        raise AssertionError(f"{what} grids differ: cells {la.size} vs "
+                             f"{lb.size}, iterations {ia} vs {ib}")
+    return {"identical": True,
+            "metric_trace_max_abs_diff": float(np.abs(ma - mb).max())}
+
+
+def case_summary(s3, t) -> dict:
+    st = s3.data_final_mesh["epoch_stats"]
+    return {"n_cells": int(s3.centers.shape[0]),
+            "iterations": int(s3.data_final_mesh["iterations"]),
+            "ring_queries": int(st["ring_queries"]),
+            "bad_cells_escalated": int(st["n_bad_cells"]),
+            "bad_cells_to_full_scan": int(st["full_scan_cells"]),
+            "refine_s": t["refine"]}
+
+
+def phase_cuda_vs_cpu(tmp: str) -> dict:
+    xyz, metric, geometries, kw = compare_case()
+    keys, out = {}, {"phase": "cuda_vs_cpu", "n_points": 60_000}
+    for dev in ("cuda", "cpu"):
+        s3, _, _, t, _ = run_grid(tmp, f"cmp_{dev}", xyz, metric, geometries,
+                                  device=dev, **kw)
+        keys[dev] = grid_key(s3)
+        out[dev] = case_summary(s3, t)
+    out.update(compare_grids("cuda and cpu", keys["cuda"], keys["cpu"]))
+    return out
+
+
+def phase_blocked_layout(tmp: str) -> tuple:
+    """The ``cuda_vs_cpu`` case on the card with the dilated layout and
+    without it (``KNNIndex.DIL_MAX_BYTES = 0``): every epoch query and every
+    ring then selects over blocked slabs, and the grid must not move."""
+    from sparsespatialsampling_torch.ops.knn import KNNIndex
+    xyz, metric, geometries, kw = compare_case()
+    out = {"phase": "blocked_layout", "n_points": 60_000}
+    s3, _, _, t, _ = run_grid(tmp, "dil", xyz, metric, geometries, **kw)
+    dilated = grid_key(s3)
+    out["dilated"] = case_summary(s3, t)
+    saved = KNNIndex.DIL_MAX_BYTES
+    KNNIndex.DIL_MAX_BYTES = 0
+    try:
+        s3, _, _, t, counts, tap, _ = main_path_run(
+            "blocked_layout", tmp, "blk", xyz, metric, geometries,
+            sites=(BLOCKED,), **kw)
+    finally:
+        KNNIndex.DIL_MAX_BYTES = saved
+    if "dil_pts" in s3._knn_index._grid:
+        raise AssertionError("blocked_layout: the index built a dilated "
+                             "layout")
+    out["blocked"] = {**case_summary(s3, t), "launches": counts,
+                      "launches_per_site": dict(tap.launches)}
+    out.update(compare_grids("dilated and blocked", dilated, grid_key(s3)))
+    out["kernel_at_call_sites"] = check_sites(tap)
+    return out, counts
+
+
+def phase_large_k() -> dict:
+    """``KNNIndex.query`` at k = 300 on the card against the CPU: the full
+    scan selects k + 8 = 308 candidates, above the kernel's queue, through
+    the stable sort."""
+    from sparsespatialsampling_torch.ops import knn
+    xyz, _, bounds = cylinder_wake_3d(40_000, seed=7)
+    queries = np.random.default_rng(8).uniform(bounds[0], bounds[1],
+                                               size=(1024, 3))
+    k = 300
+    out, got = {"phase": "large_k", "n_points": 40_000,
+                "n_queries": 1024, "k": k}, {}
+    for dev in ("cuda", "cpu"):
+        index = knn.KNNIndex(xyz, device=dev)
+        with KernelTap() as tap:
+            t0 = time.perf_counter()
+            got[dev] = index.query(queries, k)
+            out[f"{dev}_wall_s"] = time.perf_counter() - t0
+        out[f"{dev}_sorted_selections"] = tap.sorted_calls
+    (da, ia), (db, ib) = got["cuda"], got["cpu"]
+    if not out["cuda_sorted_selections"]:
+        raise AssertionError("large_k: no selection took the stable sort")
+    if not (np.array_equal(da, db) and np.array_equal(ia, ib)):
+        raise AssertionError(
+            f"large_k: card and CPU differ: dists equal "
+            f"{np.array_equal(da, db)}, idx equal {np.array_equal(ia, ib)}")
+    if da.shape != (1024, k) or not np.isfinite(da).all():
+        raise AssertionError(f"large_k: dists of shape {da.shape}, finite "
+                             f"{bool(np.isfinite(da).all())}")
+    out["bitwise_equal_cpu"] = True
     return out
 
 
@@ -569,15 +766,22 @@ def main() -> int:
         grid2d, counts2d = phase_grid2d_metric(tmp)
         emit(grid2d)
         emit(phase_cuda_vs_cpu(tmp))
+        blocked, counts_blk = phase_blocked_layout(tmp)
+        emit(blocked)
+        emit(phase_large_k())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # every number below was measured in this run; the top-level times are
     # those at the grid3d full-scan tile, the call site with the most work,
-    # and "sites" holds each grid3d call site's largest input
+    # and "sites" holds each grid3d call site's largest input and the
+    # blocked layout's from the blocked_layout run
     sites3d = grid3d["kernel_at_call_sites"]
+    sites = {**sites3d,
+             BLOCKED: blocked["kernel_at_call_sites"][BLOCKED]}
     checks = (kernel["cases"] + list(sites3d.values())
-              + list(grid2d["kernel_at_call_sites"].values()))
+              + list(grid2d["kernel_at_call_sites"].values())
+              + list(blocked["kernel_at_call_sites"].values()))
     timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     epoch = kernel["cases"][0]
@@ -587,11 +791,12 @@ def main() -> int:
         "replaces": "sparsespatialsampling_tpu/ops/pallas_topk.py:62",
         "launches": counts3d["topk_smallest"],
         "launches_grid2d_metric": counts2d["topk_smallest"],
+        "launches_blocked_layout": counts_blk["topk_smallest"],
         "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{key: sites3d["full_scan_tile"][key] for key in timed},
         "sites": {site: {key: c[key] for key in timed + ("launches",)}
-                  for site, c in sites3d.items()},
+                  for site, c in sites.items()},
         "epoch_shape": {key: epoch[key] for key in timed}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

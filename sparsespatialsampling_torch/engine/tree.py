@@ -6,17 +6,22 @@ flat host arrays keyed by (level, integer lattice coordinates); creation
 index is the tie-break of every selection.  The host drives the epochs —
 the stopping rule is sequential — and each epoch's numerics run on the
 device in one fused function (:meth:`SamplingTree._epoch`): query centres
-of every new cell and its 2^d prospective children, exact kNN (dilated
-grid through the ``topk_smallest`` kernel, or the full scan on small
-clouds), IDW prediction, the gain formula and geometry validity, returned
-as one ``[M, 4]`` f32 array (gain, metric, invalid, bad).
+of every new cell and its 2^d prospective children, exact kNN (the grid
+through the ``topk_smallest`` kernel, or the full scan on small clouds),
+IDW prediction, the gain formula and geometry validity, returned as one
+``[M, 4]`` f32 array (gain, metric, invalid, bad).
 
-Cells whose grid kNN is not provably exact (``bad``) go straight to the
-full scan, which gives the same canonical answer the JAX package's radius-4
-ring retry does.  Gains and metrics are computed in f32 on the device and
-kept in f64 on the host, where the top-k selection runs (gain descending,
-creation index ascending).  Levels above 22 (beyond exact f32 lattice
-centres) take the f64 host path.
+A grid query that is not provably exact is answered again inside the
+epoch, as in the JAX package's ``fn_grid_dil``: over the blocked radius-4
+neighbourhood (the ring), then, once a cell has had to be escalated, by
+the full scan for up to 1,024 leftover rows (the rescue).  Cells still
+``bad`` after that go to the host escalation: a radius-4 ring epoch over
+their cells, then the full scan.  Every route emits the canonical
+``(sq, idx)`` order with plain f32 distances, so which one answers a query
+never changes a cell.  Gains and metrics are computed in f32 on the device
+and kept in f64 on the host, where the top-k selection runs (gain
+descending, creation index ascending).  Levels above 22 (beyond exact f32
+lattice centres) take the f64 host path.
 """
 import logging
 from functools import reduce
@@ -29,8 +34,8 @@ import torch
 
 from .._device import resolve_device
 from ..ops import morton
-from ..ops.knn import (KNNIndex, _dilated_topk, _fma, _idw, _rowsum,
-                       _search, _weighted_sum)
+from ..ops.knn import (KNNIndex, _blocked_topk, _dilated_topk, _fma, _idw,
+                       _rowsum, _search, _weighted_sum)
 
 logger = logging.getLogger(__name__)
 
@@ -50,6 +55,17 @@ OFFSETS = {d: ((DIRECTIONS[d] + 1) // 2).astype(np.int64) for d in (2, 3)}
 _EPOCH_CHUNK = {2: 16384, 3: 4096}
 # deepest level whose lattice centres are exact in f32
 _F32_LEVEL_CAP = 22
+# the in-epoch ring: a first pass of up to 256 bad queries at radius 4,
+# then batches of up to 1,024 until every bad query has been tried once at
+# radius 4 (a radius-4 row is (2·4+1)^d slabs of C points, 280 KB at C = 32
+# in 3D, so a batch gathers at most ~290 MB)
+_RING_PLAN = ((256, 4),)
+_RING_LOOP_ROWS = 1024
+_RING_LOOP_RADIUS = 4
+# rows the in-epoch full-scan rescue answers at most per epoch pass
+_RESCUE_ROWS = 1024
+# cells per host ring epoch (the JAX package's host escalation)
+_RETRY_RING_CELLS = 256
 
 
 def _cell_size(width, level):
@@ -147,12 +163,19 @@ class SamplingTree:
                        "t_end_geometry": 0.0, "t_start_renumber": 0.0,
                        "t_end_renumber": 0.0, "t_init": 0.0,
                        "t_knn_build": 0.0}
-        # epoch accounting: query count, grid / full-scan passes, bad cells
-        # sent to the full scan, wall seconds of all epochs and of their
-        # full-scan retries
+        # epoch accounting: query count; main, host-ring and full-scan
+        # passes; cells that left their epoch still bad, and those of them
+        # the host ring left to the full scan; queries the in-epoch ring
+        # and the in-epoch full-scan rescue answered; wall seconds of all
+        # epochs and of the host escalation
         self._epoch_stats = {"queries": 0, "n_calls_main": 0,
-                             "n_calls_full": 0, "n_bad_cells": 0,
+                             "n_calls_ring": 0, "n_calls_full": 0,
+                             "n_bad_cells": 0, "full_scan_cells": 0,
+                             "ring_queries": 0, "rescued_queries": 0,
                              "wall_s": 0.0, "t_retry_s": 0.0}
+        # the in-epoch full-scan rescue starts off and turns on at the
+        # first cell escalation (the JAX package's default "auto" mode)
+        self._rescue_active = False
 
         self.all_nodes = None
         self.all_centers = None
@@ -308,29 +331,97 @@ class SamplingTree:
         return torch.stack([gain, pred[:, 0], invalid.to(pred.dtype),
                             bad.to(pred.dtype)], dim=1)
 
-    def _epoch(self, idx: np.ndarray, full_scan: bool) -> np.ndarray:
+    def _epoch(self, idx: np.ndarray, mode: str = "grid") -> np.ndarray:
         """One fused epoch pass over cells ``idx`` → ``[M, 4]`` f32 (gain,
-        metric, invalid, bad) on the host.  The grid pass marks ``bad`` the
-        valid cells with a query that failed the exactness test; the full
-        scan is exact and never does."""
+        metric, invalid, bad) on the host.  A cell is ``bad`` when one of
+        its queries is not provably exact.
+
+        - ``"grid"`` (the JAX package's ``fn_grid_dil``): the dilated
+          query, or the blocked one at radius 1 where the index has no
+          dilated layout; then the ring over the bad queries of valid cells
+          (invalid cells are removed regardless, so their queries are never
+          retried), then the full-scan rescue once it is active.
+        - ``"ring"`` (``fn_grid_ring``): every query over the blocked
+          radius-4 neighbourhood, for the host escalation.
+        - ``"full"``: the exact full scan, never bad.
+
+        The query centres are computed once and serve every route, so a
+        query answered by the ring or the rescue gets the answer its own
+        full-scan retry would."""
         knn = self._knn
+        k = self._n_neighbors
         n_children = 1 + 2 ** self._n_dimensions
         coords, level = self._cells_on_device(idx)
         queries = self._query_centers(coords, level)
         invalid = self._invalid_on_device(coords, level, self._geometry)
-        if full_scan:
-            sq, nbr = _search(queries, knn._points, knn._points_sq,
-                              self._n_neighbors, knn._tile_n, knn._tile_q)
-            bad = torch.zeros_like(invalid)
+        st = self._epoch_stats
+        nq = queries.shape[0]
+        st["queries"] += nq
+        if mode == "full":
+            sq, nbr = _search(queries, knn._points, knn._points_sq, k,
+                              knn._tile_n, knn._tile_q)
+            badq = torch.zeros(nq, dtype=torch.bool, device=self.device)
+        elif mode == "ring":
+            sq = torch.zeros((nq, k), dtype=torch.float32, device=self.device)
+            nbr = torch.zeros((nq, k), dtype=torch.int64, device=self.device)
+            badq = torch.ones(nq, dtype=torch.bool, device=self.device)
+            self._ring(queries, sq, nbr, badq)
         else:
-            sq, nbr, _, ok, _ = _dilated_topk(queries, knn._grid,
-                                              self._n_neighbors)
-            # invalid cells are removed regardless: never retry them
-            bad_q = ~ok & ~invalid.repeat_interleave(n_children)
-            bad = bad_q.reshape(-1, n_children).any(dim=1)
+            if "dil_pts" in knn._grid:
+                sq, nbr, _, ok, _ = _dilated_topk(queries, knn._grid, k)
+            else:
+                sq, nbr, ok = _blocked_topk(queries, knn._grid, k)
+            badq = ~ok & ~invalid.repeat_interleave(n_children)
+            st["ring_queries"] += self._ring(queries, sq, nbr, badq)
+            if self._rescue_active:
+                st["rescued_queries"] += self._rescue(queries, sq, nbr, badq)
+        bad = badq.reshape(-1, n_children).any(dim=1)
         pred = _weighted_sum(_idw(sq), knn._values[nbr])
-        self._epoch_stats["queries"] += int(queries.shape[0])
         return self._gain_tail(level, pred, invalid, bad).cpu().numpy()
+
+    def _ring(self, queries, sq, nbr, badq) -> int:
+        """Answer the queries marked in ``badq`` again over the blocked
+        radius-4 neighbourhood, in place on ``sq``, ``nbr`` and ``badq``
+        (the JAX package's ring passes, ``fn_grid_dil``): the
+        ``_RING_PLAN`` pass takes the first 256 in ascending index, then
+        batches of ``_RING_LOOP_ROWS`` take the rest.  Each is tried once
+        at radius 4; its answer does not depend on the batch it rides in.
+        A row the ring cannot prove exact keeps the ring's answer and stays
+        marked.  Returns how many rows it proved exact."""
+        rows = torch.nonzero(badq).flatten()
+        ((size, radius),) = _RING_PLAN
+        answered = lo = 0
+        while lo < rows.numel():
+            r = rows[lo:lo + size]
+            rsq, ridx, rok = _blocked_topk(queries[r], self._knn._grid,
+                                           self._n_neighbors, radius)
+            sq[r], nbr[r], badq[r] = rsq, ridx, ~rok
+            answered += int(rok.sum())
+            lo += size
+            size, radius = _RING_LOOP_ROWS, _RING_LOOP_RADIUS
+        return answered
+
+    def _rescue(self, queries, sq, nbr, badq) -> int:
+        """The exact full scan for the first ``_RESCUE_ROWS`` queries still
+        marked in ``badq`` (ascending index), in place, as the JAX package's
+        in-kernel rescue; returns how many it answered."""
+        rows = torch.nonzero(badq).flatten()[:_RESCUE_ROWS]
+        if rows.numel():
+            knn = self._knn
+            sq[rows], nbr[rows] = _search(queries[rows], knn._points,
+                                          knn._points_sq, self._n_neighbors,
+                                          knn._tile_n, knn._tile_q)
+            badq[rows] = False
+        return int(rows.numel())
+
+    def _maybe_enable_rescue(self) -> None:
+        """At the first cell escalation, turn the in-epoch full-scan rescue
+        on for every later epoch (the JAX package's default "auto" mode,
+        which spares hole-free runs its cost)."""
+        if not self._rescue_active:
+            logger.info("Bad cells appeared: enabling the in-epoch "
+                        "full-scan rescue for subsequent epochs.")
+            self._rescue_active = True
 
     def _update_gain(self, idx: np.ndarray) -> None:
         """f64 host path of the gain (levels above 22): predict the metric
@@ -353,7 +444,7 @@ class SamplingTree:
 
     def _process_new_cells(self, idx: np.ndarray) -> None:
         """Gain + metric + validity of newly created cells: fused epoch
-        passes in chunks, then the full scan for the bad cells."""
+        passes in chunks, then the host escalation for the bad cells."""
         if idx.size == 0:
             return
         if self._level[idx].max() > _F32_LEVEL_CAP:
@@ -370,10 +461,10 @@ class SamplingTree:
         retry = []
         for lo in range(0, idx.size, chunk):
             part = idx[lo:lo + chunk]
-            out = self._epoch(part, full_scan=grid is None)
+            out = self._epoch(part, "full" if grid is None else "grid")
             st["n_calls_main"] += 1
-            # cells whose grid kNN could not be answered exactly re-run
-            # through the full scan, except those the geometry invalidated
+            # cells whose grid kNN could not be answered exactly are
+            # escalated, except those the geometry invalidated
             bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
             if bad.any():
                 retry.append(part[bad])
@@ -383,13 +474,27 @@ class SamplingTree:
         st["wall_s"] += time() - t0
 
     def _resolve_retries(self, retry_idx: np.ndarray, chunk: int) -> None:
-        """Bad cells straight to the exact full scan."""
+        """Host escalation of cells still bad after their epoch (the JAX
+        package's ``_resolve_retries``): the rescue turns on, a radius-4
+        ring epoch answers the cells' queries, 256 cells a pass, and only
+        the cells it still marks bad run through the exact full scan."""
+        self._maybe_enable_rescue()
         st = self._epoch_stats
         st["n_bad_cells"] += int(retry_idx.size)
         t0 = time()
+        still = []
+        for lo in range(0, retry_idx.size, _RETRY_RING_CELLS):
+            part = retry_idx[lo:lo + _RETRY_RING_CELLS]
+            out = self._epoch(part, "ring")
+            st["n_calls_ring"] += 1
+            bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
+            self._apply_epoch_out(part[~bad], out[~bad])
+            still.append(part[bad])
+        retry_idx = np.concatenate(still)
+        st["full_scan_cells"] += int(retry_idx.size)
         for lo in range(0, retry_idx.size, chunk):
             part = retry_idx[lo:lo + chunk]
-            self._apply_epoch_out(part, self._epoch(part, full_scan=True))
+            self._apply_epoch_out(part, self._epoch(part, "full"))
             st["n_calls_full"] += 1
         st["t_retry_s"] += time() - t0
 

@@ -20,6 +20,16 @@ results are bitwise equal wherever both are exact:
   accepted only when its k-th distance lies inside the covered
   neighbourhood and no overflowing cell's box reaches its k-ball; every
   other row is re-answered by the full scan.
+- **Blocked bucket grid** (:func:`_blocked_topk`): the members of each
+  cell as one ``[C, d]`` slab; a query gathers the (2r+1)^d slabs around
+  its cell, whose candidates are not sorted by index, so it selects
+  ``k + 8`` through the kernel and sorts those canonically
+  (:func:`_topk_canonical`).  It answers when the dilated layout is over
+  ``KNNIndex.DIL_MAX_BYTES`` or narrower than k, and at radius 4 it is
+  the engine's ring rescue.
+
+Selections wider than the kernel's queue (``k + 8 > 256``, where the JAX
+package calls ``lax.top_k``) take one stable sort (:func:`_select_sorted`).
 
 Sums over the coordinate axis and over the k neighbours run in a fixed
 order (:func:`_sqsum`, :func:`_rowsum`): the distances then equal XLA's
@@ -40,8 +50,6 @@ from . import topk as _topk
 
 DEFAULT_TILE_N = 16384
 DEFAULT_TILE_Q = 1024
-# largest k a query takes: the full scan keeps k + 8 candidates per tile
-MAX_K = _topk.MAX_K - 8
 # rows of the dilated-layout build processed at once (bounds the
 # [block, 3^d·C, d] sort transients)
 _DILATE_BLOCK = 8192
@@ -105,10 +113,29 @@ def _sort_neighbors(sq: torch.Tensor, idx: torch.Tensor):
 
 def _idw(sq: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Normalised inverse-distance weights from squared distances
-    (``w = 1 / clamp(dist, 1e-12)``, reference ``export.py:428-429``)."""
-    dists = _sqrt(torch.clamp_min(sq, 0.0))
-    w = 1.0 / torch.clamp_min(dists, eps)
-    return w / _rowsum(w)[:, None]
+    (``w = 1 / clamp(dist, 1e-12)``, reference ``export.py:428-429``).
+    The normalisation is ``1 / (c · Σ 1/c)`` with ``c`` the clamped
+    distance: XLA folds the JAX package's ``w / w.sum()`` into that one
+    division, so with it the 2D (k = 8) predictions equal the JAX
+    package's bit for bit."""
+    c = torch.clamp_min(_sqrt(torch.clamp_min(sq, 0.0)), eps)
+    return 1.0 / (c * _rowsum(1.0 / c)[:, None])
+
+
+def _select_sorted(x: torch.Tensor, kk: int):
+    """The ``kk`` smallest of each row, ascending, ties to the lowest
+    column, through one stable sort: the selections wider than
+    ``topk_smallest``'s queue, where the JAX package calls ``lax.top_k``
+    (which has no cap).  Returns ``(vals [Q, kk], sel [Q, kk] int64)``."""
+    vals, order = torch.sort(x, dim=1, stable=True)
+    return vals[:, :kk], order[:, :kk]
+
+
+def _selector(kk: int):
+    """The selection for ``kk`` columns: the kernel up to its queue size,
+    else :func:`_select_sorted`.  Each call site calls what this returns
+    itself, so a launch is counted at the site that made it."""
+    return _topk.topk_smallest if kk <= _topk.MAX_K else _select_sorted
 
 
 def _tile_select(q, points, points_sq, t0: int, tile_n: int, kk: int):
@@ -122,7 +149,8 @@ def _tile_select(q, points, points_sq, t0: int, tile_n: int, kk: int):
     for a in range(1, p.shape[1]):
         dot = dot + q[:, None, a] * p[None, :, a]
     score = points_sq[None, t0:t0 + tile_n] - 2.0 * dot
-    s, sel = _topk.topk_smallest(score, min(kk, score.shape[1]))
+    kk = min(kk, score.shape[1])
+    s, sel = _selector(kk)(score, kk)
     return s, sel.long() + t0
 
 
@@ -146,7 +174,7 @@ def _search(queries, points, points_sq, k: int, tile_n: int, tile_q: int):
         if len(cand_s) > 1:
             # the kk best of the tiles' candidates; tiles are in ascending
             # order, so equal scores keep the lower index
-            s, sel = _topk.topk_smallest(torch.cat(cand_s, dim=1), kk)
+            s, sel = _selector(kk)(torch.cat(cand_s, dim=1), kk)
             best = torch.gather(torch.cat(cand_i, dim=1), 1, sel.long())
         else:
             s, best = cand_s[0], cand_i[0]
@@ -322,18 +350,20 @@ def _covered_margin_sq(t, cc, dims, inv_h, radius: int):
     an anchor outside the bbox earns the cap-shaped allowance of the JAX
     package's ``_covered_margin_sq``).  Capped at 9e28, below the
     1e30-scale squared distances of the 1e15 pad slots, so a row whose
-    top-k ran out of real candidates is always rejected."""
+    top-k ran out of real candidates is always rejected.  The sum of
+    squares, ``sum − out²`` and ``face² + oth`` are fused multiply-adds,
+    as XLA's CPU backend compiles them, so the margins equal the JAX
+    package's bit for bit."""
     h = 1.0 / inv_h
     out = torch.clamp_min(torch.maximum(t - dims, -t), 0.0) * h      # [Q, d]
-    out_sq = out * out
-    oth = _rowsum(out_sq)[:, None] - out_sq                          # [Q, d]
+    oth = _fma(-out, out, _sqsum(out)[:, None])                      # [Q, d]
     dlo = t - torch.clamp_min(cc - radius, 0)
     dhi = torch.minimum(cc + radius + 1, dims) - t
     inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
     dlo = torch.where(cc - radius <= 0, inf, dlo)
     dhi = torch.where(cc + radius + 1 >= dims, inf, dhi)
     face = torch.minimum(dlo, dhi) * h
-    margin_sq = ((face * face + oth) * (1.0 - 1e-4)).min(dim=1).values
+    margin_sq = (_fma(face, face, oth) * (1.0 - 1e-4)).min(dim=1).values
     return torch.clamp_max(margin_sq, 9e28)
 
 
@@ -397,6 +427,75 @@ def _dilated_topk(queries, grid: dict, k: int):
     return sq, idx, sel, ok, flat
 
 
+def _grid_neighborhood(anchors, n_cells_total: int, origin, inv_h, dims,
+                       radius: int = 1):
+    """Flat ids of each anchor's (2r+1)^d neighbourhood cells in
+    `_neighbor_offsets` order (cells outside the grid map to the all-pad
+    sentinel row ``n_cells_total - 1``) and the squared exactness margin of
+    the covered box (:func:`_covered_margin_sq`).  Anchors outside the bbox
+    are clamped to their nearest boundary cell.  Returns ``(flat [Q, R]
+    int64, margin_sq [Q])``."""
+    d = anchors.shape[1]
+    offs = torch.from_numpy(_neighbor_offsets(d, radius).astype(
+        np.int64)).to(anchors.device)
+    t = (anchors - origin) * inv_h
+    cc = torch.minimum(torch.clamp_min(torch.floor(t).long(), 0),
+                       dims[None, :] - 1)
+    margin_sq = _covered_margin_sq(t, cc, dims[None, :], inv_h, radius)
+    nb = cc[:, None, :] + offs[None, :, :]                            # [Q, R, d]
+    valid = ((nb >= 0) & (nb < dims[None, None, :])).all(dim=-1)
+    flat = nb[..., 0]
+    for ax in range(1, d):
+        flat = flat * dims[ax] + nb[..., ax]
+    return torch.where(valid, flat, n_cells_total - 1), margin_sq
+
+
+def _grid_candidates(queries, grid: dict, radius: int):
+    """The (2r+1)^d blocked slabs around each query's cell: plain f32
+    distances ``d2 [Q, R·C]`` (:func:`_sqsum`, the same rounding as the
+    dilated rows), candidate ids ``cand [Q, R·C]``, ``margin_sq [Q]``, the
+    per-cell overflow flags ``[Q, R]``."""
+    cell_list = grid["cell_list"]
+    flat, margin_sq = _grid_neighborhood(queries, cell_list.shape[0],
+                                         grid["origin"], grid["inv_h"],
+                                         grid["dims"], radius)
+    q = queries.shape[0]
+    cpts = grid["cell_pts"][flat]                           # [Q, R, C, d]
+    d2 = _sqsum(queries[:, None, None, :] - cpts).reshape(q, -1)
+    cand = cell_list[flat].reshape(q, -1)
+    return d2, cand, margin_sq, grid["overflow"][flat]
+
+
+def _topk_canonical(d2, cand, k: int):
+    """Canonical top-k of unsorted candidate rows: the ``k + 8`` nearest
+    slots (lowest slot first at equal distance, as the JAX package's stable
+    ``lax.top_k(-d2)``), their candidate ids, the ascending ``(sq, idx)``
+    sort, the first k.  The slack lets a distance tie at the k-th place
+    resolve by point index instead of by slot.  Returns ``(sq [Q, k],
+    idx [Q, k] int64)``."""
+    kk = min(k + 8, d2.shape[1])
+    sq, sel = _selector(kk)(d2, kk)
+    idx = torch.gather(cand, 1, sel.long()).long()
+    sq, idx = _sort_neighbors(sq, idx)
+    return sq[:, :k], idx[:, :k]
+
+
+def _blocked_topk(queries, grid: dict, k: int, radius: int = 1):
+    """Blocked-grid kNN of ``queries [Q, d]`` (centred f32) over the
+    (2r+1)^d neighbourhood of each query's cell: ``(sq, idx, ok)`` in
+    canonical order, ``ok`` marking rows provably exact (the k-th distance
+    inside the covered box, no overflowing cell's box inside the k-ball).
+    Radius 1 is the JAX package's ``_grid_query_kernel``; radius 4 its
+    ring rescue."""
+    d2, cand, margin_sq, ovf_nb = _grid_candidates(queries, grid, radius)
+    sq, idx = _topk_canonical(d2, cand, k)
+    sq_max = sq.max(dim=1).values
+    ok = ((sq_max <= margin_sq)
+          & ~_overflow_contaminated(queries, ovf_nb, sq_max, grid["origin"],
+                                    grid["inv_h"], grid["dims"], radius))
+    return sq, idx, ok
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -416,6 +515,10 @@ class KNNIndex:
     GRID_SHRINK_TARGET = 32
     # queries per grid pass; doubled when the capacity is <= 32
     GRID_CHUNK = 32768
+    # the dilated layout is built only when its persistent bytes, (n_cells
+    # + 1)·keep_w·(d + 3)·4, stay within this (the JAX package's
+    # S3_TPU_DIL_MAX_BYTES default); above it the blocked layout answers
+    DIL_MAX_BYTES = 4e9
 
     @property
     def _grid_chunk(self) -> int:
@@ -475,10 +578,12 @@ class KNNIndex:
         return morton.encode(grid)
 
     def _build_grid(self, sorted_pts: np.ndarray) -> None:
-        """Bucket grid over the sorted cloud and its dilated layout: each
-        cell's row lists the members of its whole 3^d neighbourhood,
-        ascending by index, compacted to the widest occupied row (a
-        multiple of 64, at least 128)."""
+        """Bucket grid over the sorted cloud: the blocked layout (each
+        cell's members as one ``[C, d]`` slab) and, within
+        ``DIL_MAX_BYTES``, the dilated layout: each cell's row lists the
+        members of its whole 3^d neighbourhood, ascending by index,
+        compacted to the widest occupied row (a multiple of 64, at least
+        128)."""
         dev = self.device
         d = self.n_dim
         plan = _plan_grid(sorted_pts, self.n_points, self.GRID_OCCUPANCY,
@@ -491,13 +596,8 @@ class KNNIndex:
         # pad slots read the 1e30 pad row, clamped to 1e15 so squared pad
         # distances stay finite (~3e30) yet never rank
         cell_pts = torch.clamp_max(self._points[cell_list.long()], 1e15)
-        occ = _max_dilated_occupancy(plan["counts"], plan["dims"], C)
-        keep_w = int(min((3 ** d) * C, max(128, -(-occ // 64) * 64)))
-        nb = torch.from_numpy(_grid_neighbor_table(plan["dims"],
-                                                   n_cells)).to(dev)
         overflow = torch.from_numpy(
             plan["overflow"].astype(np.float32)).to(dev)
-        dil_pts, dil_cand = _dilate_sorted(cell_pts, cell_list, nb, keep_w)
         self._grid = {
             "C": C,
             "origin": torch.from_numpy(
@@ -506,11 +606,19 @@ class KNNIndex:
                                   device=dev),
             "dims": torch.from_numpy(plan["dims"].astype(np.int64)).to(dev),
             "cell_list": cell_list,
+            "cell_pts": cell_pts,
             # f32 0/1 flags (the overflow verdict compares > 0.5)
             "overflow": overflow,
-            "dil_pts": dil_pts, "dil_cand": dil_cand,
-            "dil_ovf": overflow[nb], "_dil_keep": keep_w,
         }
+        occ = _max_dilated_occupancy(plan["counts"], plan["dims"], C)
+        keep_w = int(min((3 ** d) * C, max(128, -(-occ // 64) * 64)))
+        if n_rows * keep_w * (d + 3) * 4 > self.DIL_MAX_BYTES:
+            return
+        nb = torch.from_numpy(_grid_neighbor_table(plan["dims"],
+                                                   n_cells)).to(dev)
+        dil_pts, dil_cand = _dilate_sorted(cell_pts, cell_list, nb, keep_w)
+        self._grid.update(dil_pts=dil_pts, dil_cand=dil_cand,
+                          dil_ovf=overflow[nb], _dil_keep=keep_w)
 
     def set_values(self, values) -> None:
         """Attach per-point values for :meth:`predict` (``[N]`` or
@@ -552,10 +660,14 @@ class KNNIndex:
         are re-answered by the full scan (``last_fallback`` counts them)."""
         g = self._grid
         qf = self._queries_f32(queries)
+        use_dil = "dil_pts" in g and k <= g["_dil_keep"]
         outs, oks = [], []
         for lo in range(0, qf.shape[0], self._grid_chunk):
-            sq, idx, _, ok, _ = _dilated_topk(qf[lo:lo + self._grid_chunk],
-                                              g, k)
+            chunk = qf[lo:lo + self._grid_chunk]
+            if use_dil:
+                sq, idx, _, ok, _ = _dilated_topk(chunk, g, k)
+            else:
+                sq, idx, ok = _blocked_topk(chunk, g, k)
             outs.append(_weighted_sum(_idw(sq), self._values[idx])
                         if mode == "predict" else (sq, idx))
             oks.append(ok)
@@ -576,14 +688,18 @@ class KNNIndex:
         return sq, idx
 
     def _uses_grid(self, n_queries: int, k: int) -> bool:
+        """The grid answers when its 3^d·C candidates can hold k, as in the
+        JAX package, and k fits the selection kernel's queue (a larger k
+        goes to the full scan, which gives the same canonical answer)."""
         g = self._grid
         return (g is not None and n_queries > 0
-                and k <= min((3 ** self.n_dim) * g["C"], g["_dil_keep"]))
+                and k <= min((3 ** self.n_dim) * g["C"], _topk.MAX_K))
 
     def _spatial_run(self, queries, k: int, mode: str):
-        """Grid path when it can hold k candidates, else the full scan.
-        Returns ``(sq, idx)`` (sorted-point indexing) or ``pred``, as
-        tensors on the device."""
+        """Grid path when it can hold k candidates (the dilated layout
+        where it exists and is at least k wide, else the blocked one),
+        else the full scan.  Returns ``(sq, idx)`` (sorted-point indexing)
+        or ``pred``, as tensors on the device."""
         queries = np.asarray(queries, dtype=np.float64) - self._shift
         if self._uses_grid(queries.shape[0], k):
             return self._grid_run(queries, k, mode)
@@ -593,10 +709,6 @@ class KNNIndex:
         if not 1 <= k <= self.n_points:
             raise ValueError(f"k={k} must lie in [1, {self.n_points}] (the "
                              f"number of indexed points).")
-        if k > MAX_K:
-            raise ValueError(f"k={k} exceeds {MAX_K}: the full scan selects "
-                             f"k + 8 candidates, and the topk_smallest "
-                             f"kernel takes at most {_topk.MAX_K}.")
 
     # ------------------------------------------------------------------ #
     # public API                                                         #
@@ -664,8 +776,11 @@ def index_from_reference(arrays: dict, device=None) -> KNNIndex:
     """A :class:`KNNIndex` over the arrays of an index the JAX package built
     (numpy copies): ``_points``, ``_points_sq``, ``_perm``, ``_shift`` and,
     where the cloud has a grid, ``origin``, ``inv_h``, ``dims``, ``C``,
-    ``cell_list``, ``overflow``, ``dil_pts``, ``dil_cand``, ``dil_ovf`` and
-    ``_dil_keep``.  Lets the query side run on a layout built elsewhere, so
+    ``cell_list``, ``overflow`` and, where it has a dilated layout,
+    ``dil_pts``, ``dil_cand``, ``dil_ovf`` and ``_dil_keep`` (the blocked
+    slabs are gathered from ``_points`` and ``cell_list`` as
+    ``_build_grid`` gathers them).  Lets the query side run on a layout
+    built elsewhere, so
     a query fault shows apart from a build fault.  ``_points_host`` (the
     centred f64 cloud, original order) is optional; without it
     :meth:`KNNIndex.predict_host` works from the f32 points."""
@@ -697,22 +812,24 @@ def index_from_reference(arrays: dict, device=None) -> KNNIndex:
     idx.last_fallback = 0
     idx._values = None
     idx._grid = None
-    if "dil_pts" in arrays:
+    if "cell_list" in arrays:
         def t(name, dtype):
             return torch.from_numpy(np.ascontiguousarray(
                 np.asarray(arrays[name]).astype(dtype))).to(dev)
-        overflow = t("overflow", np.float32)
+        cell_list = t("cell_list", np.int32)
         idx._grid = {
             "C": int(arrays["C"]),
             "origin": t("origin", np.float32),
             "inv_h": torch.tensor(float(np.asarray(arrays["inv_h"])),
                                   dtype=torch.float32, device=dev),
             "dims": t("dims", np.int64),
-            "cell_list": t("cell_list", np.int32),
-            "overflow": overflow,
-            "dil_pts": t("dil_pts", np.float32),
-            "dil_cand": t("dil_cand", np.int32),
-            "dil_ovf": t("dil_ovf", np.float32),
-            "_dil_keep": int(arrays["_dil_keep"]),
+            "cell_list": cell_list,
+            "cell_pts": torch.clamp_max(idx._points[cell_list.long()], 1e15),
+            "overflow": t("overflow", np.float32),
         }
+        if "dil_pts" in arrays:
+            idx._grid.update(dil_pts=t("dil_pts", np.float32),
+                             dil_cand=t("dil_cand", np.int32),
+                             dil_ovf=t("dil_ovf", np.float32),
+                             _dil_keep=int(arrays["_dil_keep"]))
     return idx

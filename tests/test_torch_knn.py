@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from sparsespatialsampling_tpu.ops import knn as jknn  # noqa: E402
 from sparsespatialsampling_torch.ops import knn as tknn  # noqa: E402
+from sparsespatialsampling_torch.ops import topk  # noqa: E402
 
 CASES = [(2, 6000), (3, 4000)]
 MODES = {"grid": 1000, "full-scan": 10 ** 12}
@@ -161,8 +162,21 @@ def test_k_out_of_range_raises():
         t.query(np.zeros((1, 2)), 51)
 
 
-def test_k_above_selection_limit_raises():
-    t = tknn.KNNIndex(np.random.default_rng(0).uniform(size=(400, 2)),
-                      device="cpu")
-    with pytest.raises(ValueError, match=str(tknn.MAX_K)):
-        t.query(np.zeros((1, 2)), tknn.MAX_K + 1)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k_above_selection_limit_raises(monkeypatch, mode):
+    """k = 300 is above what the selection kernel takes (its wrapper still
+    raises), yet ``KNNIndex`` answers it as the JAX package does: the port
+    sends it to the full scan, whose k + 8 selections take one stable sort;
+    the JAX package answers it from its grid where one is built (3^3·C >=
+    300), with the same canonical result."""
+    k = 300
+    with pytest.raises(ValueError, match=str(topk.MAX_K)):
+        topk.topk_smallest(torch.zeros(4, 1000), k)
+    j, t, q, _ = _pair(monkeypatch, 3, 4000, mode)
+    jd, ji = j.query(q, k)
+    td, ti = t.query(q, k)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+    # IDW sums of 300 terms in another order than the JAX einsum's
+    np.testing.assert_allclose(t.predict(q, k), j.predict(q, k), rtol=1e-5,
+                               atol=1e-6)

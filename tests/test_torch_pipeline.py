@@ -53,8 +53,8 @@ def _geoms_2d(pkg):
 
 def _cloud_3d_void():
     """3D cloud whose void (r < 0.2) is wider than the obstacle (r = 0.12):
-    cells between the two have valid queries the grid cannot answer, which
-    exercises the full-scan retry of bad cells."""
+    cells between the two have valid queries the 3^d neighbourhood cannot
+    answer, which exercises the ring rescue of bad queries."""
     rng = np.random.default_rng(3)
     xyz = rng.uniform(0, 1, size=(7000, 3))
     xyz = xyz[np.linalg.norm(xyz - 0.4, axis=1) > 0.2][:6000]
@@ -125,8 +125,8 @@ def test_grid_matches_jax(grids, case):
                                a.data_final_mesh["metric_per_iter"],
                                rtol=1e-5)
     if case.startswith("3d"):
-        # the full-scan retry of bad cells ran and changed nothing
-        assert b.data_final_mesh["epoch_stats"]["n_bad_cells"] > 0
+        # the ring re-answered the grid's bad queries and changed nothing
+        assert b.data_final_mesh["epoch_stats"]["ring_queries"] > 0
 
 
 def _oracle_case(points, metric, obstacle, **kwargs):

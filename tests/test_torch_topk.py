@@ -66,7 +66,10 @@ def test_cpu_wrapper_is_plain_and_counts_no_launch():
     (lambda: torch.zeros(4, 0), 4, ValueError),
     (lambda: torch.zeros(4, 8), 9, ValueError),
     (lambda: torch.zeros(4, 1000), topk.MAX_K + 1, ValueError),
-], ids=["rank", "dtype", "empty-width", "k-above-width", "k-above-max"])
+    # the full scan's k + 8 for a k = 300 query: the kNN sorts there
+    (lambda: torch.zeros(4, 16384), 308, ValueError),
+], ids=["rank", "dtype", "empty-width", "k-above-width", "k-above-max",
+        "full-scan-width-k308"])
 def test_wrapper_rejects_bad_input(bad, k, exc):
     with pytest.raises(exc, match=str(topk.MAX_K) if k > topk.MAX_K else None):
         topk.topk_smallest(bad(), k)
