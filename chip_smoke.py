@@ -50,7 +50,27 @@ Phases:
   blocked layout; its grid must equal the dilated run's;
 - ``large_k``: ``KNNIndex.query(q, 300)`` on a 40 000-point cloud on the
   card against the CPU, bitwise, through the full scan's stable-sort
-  selections (k + 8 is above the kernel's queue).
+  selections (k + 8 is above the kernel's queue);
+- ``oat2d``: the synthetic OAT15 airfoil cloud (245 000 points, seed 0)
+  around a 240-vertex polygon obstacle refined at its surface, 25 000
+  cells, six uniform levels and ``pre_select_cells=True`` (the polygon
+  outside the epochs on host-built nodes behind its bounding box): 27 084
+  cells after 33 iterations;
+- ``cylinder3d``: the ``grid3d`` cloud around a ``CylinderGeometry3D``
+  obstacle refined to level 7, 150 000 cells, no export: 151 370 cells
+  after 43 iterations;
+- ``mdl2d``: the ``grid2d_metric`` cloud's clean wake with
+  ``max_delta_level=True``, ``min_metric=0.5`` and the obstacle refined
+  to level 12 (the tutorial-3 configuration at 10x its points): 28 406
+  cells after 34 iterations, and no two leaves that share a face, an edge
+  or a corner more than one level apart;
+- ``geometry_cuda_vs_cpu``: ``mask_points`` and ``check_cells`` (both
+  modes) of every closed-form geometry class, in 2D and 3D where it
+  exists and in both polarities, on 1 000 000 seeded points (f32 lattice
+  corner nodes of levels 5-12, points within a few ulps of the surface,
+  points around it) on the card and on the CPU, bitwise; then a 60 000-point
+  3D case with a cylinder obstacle and ``max_delta_level=True`` on the
+  card and on the CPU, whose grids must be identical.
 
 The launch counters are set to 0 just before each main-path run and read
 just after it; every main-path run must have launched every kernel, from
@@ -218,7 +238,9 @@ RING, BLOCKED = "ring_select", "blocked_select"
 MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
 # (cells, iterations) of each grid phase's workload, the same whichever
 # exact route answers each query
-EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67)}
+EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67),
+            "oat2d": (27_084, 33), "cylinder3d": (151_370, 43),
+            "mdl2d": (28_406, 34)}
 
 
 def site_of(frame) -> str:
@@ -307,6 +329,79 @@ def channel_wake_2d(n_points: int = 250_000, seed: int = 3):
                + 0.4 * np.cos(12.0 * (x - 0.25))
                * np.exp(-((y - 0.2) ** 2) / 0.02)))
     return xy, (np.abs(wake) + 0.02).astype(np.float64), bounds
+
+
+def airfoil_polygon(n: int = 240) -> np.ndarray:
+    """NACA-0012-like closed profile on the chord [0, 1] (the synthetic OAT15
+    airfoil of ``bench.py:222-230``)."""
+    xc = (1 - np.cos(np.linspace(0.0, np.pi, n // 2))) / 2
+    t = 0.12
+    yt = 5 * t * (0.2969 * np.sqrt(xc) - 0.1260 * xc - 0.3516 * xc ** 2
+                  + 0.2843 * xc ** 3 - 0.1036 * xc ** 4)
+    upper = np.stack([xc, yt], axis=1)
+    lower = np.stack([xc[::-1], -yt[::-1]], axis=1)
+    return np.concatenate([upper, lower[1:-1]])
+
+
+def synthetic_oat15(n_points: int = 245_000, seed: int = 0):
+    """The synthetic 2D transonic-buffet cloud of ``bench.py:233-272``: a
+    shock ridge, a wake and a broadband texture around the airfoil, no
+    points inside it.  Returns ``(points, metric, polygon)``."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform([-0.5, -0.5], [1.5, 0.5], size=(int(n_points * 1.02), 2))
+    poly = airfoil_polygon()
+    x, y = xy[:, 0:1], xy[:, 1:2]
+    x1, y1 = poly[:-1, 0][None], poly[:-1, 1][None]
+    x2, y2 = poly[1:, 0][None], poly[1:, 1][None]
+    straddle = (y1 > y) != (y2 > y)
+    xcross = (x2 - x1) * (y - y1) / np.where(y2 == y1, 1.0, y2 - y1) + x1
+    inside = (np.sum(straddle & (x < xcross), axis=1) % 2) == 1
+    xy = xy[~inside][:n_points]
+    x, y = xy[:, 0], xy[:, 1]
+    shock = (np.exp(-((x - 0.45) ** 2) / 0.002)
+             * np.exp(-(y - 0.05) ** 2 / 0.01))
+    wake = (x > 0.9) * np.exp(-(x - 0.9) / 0.4) * np.exp(-y ** 2 / 0.02)
+    tex = np.zeros_like(x)
+    trng = np.random.default_rng(7)
+    for _ in range(12):
+        kx, ky = trng.uniform(4, 40, 2)
+        ph = trng.uniform(0, 2 * np.pi, 2)
+        tex += np.sin(kx * x + ph[0]) * np.sin(ky * y + ph[1])
+    metric = (shock + 0.6 * wake + 0.071 * np.abs(tex) / 12
+              + 0.05).astype(np.float64)
+    return xy, metric, poly
+
+
+def unbalanced(centers, levels, lo, width) -> int:
+    """Neighbour positions (across a face, an edge or a corner, at the
+    leaf's own level) that a leaf two or more levels coarser covers; 0 on
+    a grid that keeps the 2:1 balance."""
+    levels = np.asarray(levels).ravel().astype(np.int64)
+    d = centers.shape[1]
+    h = width / 2.0 ** levels
+    coords = np.rint((centers - lo) / h[:, None] - 0.5).astype(np.int64)
+
+    def keys(c, level):
+        k = c[:, 0]
+        for a in range(1, d):
+            k = k * (1 << level) + c[:, a]
+        return k
+    leaves = {int(lv): np.sort(keys(coords[levels == lv], int(lv)))
+              for lv in np.unique(levels)}
+    dirs = np.stack(np.meshgrid(*([np.array([-1, 0, 1])] * d),
+                                indexing="ij"), -1).reshape(-1, d)
+    dirs = dirs[(dirs != 0).any(axis=1)]
+    bad = 0
+    for lv in leaves:
+        mine = coords[levels == lv]
+        for step in dirs:
+            nb = mine + step
+            nb = nb[((nb >= 0) & (nb < (1 << lv))).all(axis=1)]
+            for coarse in range(lv - 1):
+                if coarse in leaves:
+                    bad += int(np.isin(keys(nb >> (lv - coarse), coarse),
+                                       leaves[coarse]).sum())
+    return bad
 
 
 def grid_summary(s3, phase_t: dict) -> dict:
@@ -736,6 +831,192 @@ def phase_large_k() -> dict:
     return out
 
 
+def phase_oat2d(tmp: str) -> tuple:
+    """Bench workload 1 (``bench.py:275-288``): the OAT15 configuration
+    with the bbox pre-select route."""
+    from sparsespatialsampling_torch import (CubeGeometry,
+                                             GeometryCoordinates2D)
+    xy, metric, poly = synthetic_oat15()
+    geometries = [CubeGeometry("domain", True, [-0.5, -0.5], [1.5, 0.5]),
+                  GeometryCoordinates2D("airfoil", False, poly,
+                                        refine=True)]
+    s3, _, _, t, counts, tap, _ = main_path_run(
+        "oat2d", tmp, "oat", xy, metric, geometries,
+        sites=("grid_select", RING), uniform_levels=6, n_cells_max=25_000,
+        pre_select_cells=True)
+    out = {"phase": "oat2d", "n_points": int(xy.shape[0]),
+           **grid_summary(s3, t), "launches": counts,
+           "launches_per_site": dict(tap.launches)}
+    check_expected("oat2d", out)
+    out["kernel_at_call_sites"] = check_sites(tap)
+    return out, counts
+
+
+def phase_cylinder3d(tmp: str) -> tuple:
+    """Bench workload 2 (``bench.py:304-319``): the ``grid3d`` cloud around
+    the cylinder it was cut for."""
+    from sparsespatialsampling_torch import CubeGeometry, CylinderGeometry3D
+    xyz, metric, bounds = cylinder_wake_3d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  CylinderGeometry3D("cylinder", False,
+                                     [[0.2, 0.2, 0.0], [0.2, 0.2, 0.41]],
+                                     0.05, refine=True,
+                                     min_refinement_level=7)]
+    s3, _, _, t, counts, tap, _ = main_path_run(
+        "cylinder3d", tmp, "cyl", xyz, metric, geometries,
+        sites=("grid_select", RING), uniform_levels=5, n_cells_max=150_000)
+    out = {"phase": "cylinder3d", "n_points": int(xyz.shape[0]),
+           **grid_summary(s3, t), "launches": counts,
+           "launches_per_site": dict(tap.launches)}
+    check_expected("cylinder3d", out)
+    out["kernel_at_call_sites"] = check_sites(tap)
+    return out, counts
+
+
+def phase_mdl2d(tmp: str) -> tuple:
+    """The tutorial-3 configuration (``bench.py:391-420``) at 10x its
+    points: the 2:1 balance in the adaptive loop and the geometry
+    refinement."""
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xy, metric, bounds = channel_wake_2d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
+                                 refine=True, min_refinement_level=12)]
+    s3, _, _, t, counts, tap, _ = main_path_run(
+        "mdl2d", tmp, "mdl", xy, metric, geometries,
+        sites=("grid_select", RING), uniform_levels=5, min_metric=0.5,
+        max_delta_level=True)
+    out = {"phase": "mdl2d", "n_points": int(xy.shape[0]),
+           **grid_summary(s3, t), "launches": counts,
+           "launches_per_site": dict(tap.launches),
+           "t_expand_s": float(
+               s3.data_final_mesh["adaptive_split"]["t_expand"])}
+    check_expected("mdl2d", out)
+    width = s3.size_initial_cell
+    lo = (np.asarray(bounds[0]) + np.asarray(bounds[1])) / 2 - width / 2
+    out["unbalanced_neighbours"] = unbalanced(s3.centers, s3.levels, lo,
+                                              width)
+    if out["unbalanced_neighbours"]:
+        raise AssertionError(f"mdl2d: {out['unbalanced_neighbours']} "
+                             f"neighbour positions break the 2:1 balance")
+    out["kernel_at_call_sites"] = check_sites(tap)
+    return out, counts
+
+
+# every closed-form geometry class, in 2D and 3D where it exists:
+# (name, class, arguments after the polarity)
+GEOMETRY_CASES = [
+    ("cube2d", "CubeGeometry", ([0.1, 0.2], [0.7, 0.6])),
+    ("cube3d", "CubeGeometry", ([0.1, 0.2, 0.3], [0.7, 0.6, 0.8])),
+    ("circle", "SphereGeometry", ([0.4, 0.45], 0.17)),
+    ("sphere", "SphereGeometry", ([0.4, 0.45, 0.5], 0.17)),
+    ("cylinder", "CylinderGeometry3D",
+     ([[0.2, 0.2, 0.0], [0.2, 0.2, 0.41]], 0.05)),
+    ("frustum", "CylinderGeometry3D",
+     ([[0.1, 0.3, 0.2], [0.7, 0.5, 0.6]], [0.2, 0.05])),
+    ("triangle", "TriangleGeometry", ([[0.1, 0.2], [0.8, 0.3],
+                                       [0.4, 0.9]],)),
+    ("tetrahedron", "TetrahedronGeometry3D",
+     ([[0.1, 0.1, 0.1], [0.9, 0.2, 0.1], [0.3, 0.8, 0.2],
+       [0.4, 0.4, 0.9]],)),
+    ("prism", "PrismGeometry3D",
+     ([[[0.1, 0.2, 0.1], [0.8, 0.3, 0.1], [0.4, 0.9, 0.1]],
+       [[0.1, 0.2, 0.7], [0.8, 0.3, 0.7], [0.4, 0.9, 0.7]]],)),
+    ("pyramid", "PyramidGeometry3D",
+     ([(0.1, 0.1, 0.2), (0.9, 0.15, 0.2), (0.85, 0.9, 0.2), (0.2, 0.8, 0.2),
+       (0.5, 0.5, 0.9)],)),
+    ("airfoil", "GeometryCoordinates2D", (airfoil_polygon(),)),
+]
+
+
+def geometry_points(g, n: int = 1_000_000, seed: int = 0) -> np.ndarray:
+    """``n`` seeded f32 points around geometry ``g``'s bounding box: corner
+    nodes of the unit lattice at levels 5-12 (``c·h`` rounded once), points
+    within a few ulps of the surface (10 000 bisected in f64 between an
+    inside and an outside sample, each moved by up to 4 ulps per axis in
+    ``n`` / 50 000 copies), and uniform points."""
+    rng = np.random.default_rng(seed)
+    lower, upper = g.bounding_box()
+    lower, upper = np.asarray(lower) - 0.05, np.asarray(upper) + 0.05
+    d = lower.size
+    parts = []
+    for level in range(5, 13):
+        h = np.float32(1.0 / 2 ** level)
+        c = rng.integers(np.floor(lower / h), np.ceil(upper / h) + 1,
+                         size=(n // 20, d))
+        parts.append((c * np.float64(h)).astype(np.float32))
+    p = rng.uniform(lower, upper, size=(200_000, d))
+    m = g.mask_points(p)
+    k = min(int(m.sum()), int((~m).sum()), 10_000)
+    a, b = p[m][:k], p[~m][:k]
+    for _ in range(60):
+        mid = 0.5 * (a + b)
+        mm = g.mask_points(mid)[:, None]
+        a, b = np.where(mm, mid, a), np.where(mm, b, mid)
+    near = a.astype(np.float32)
+    for _ in range(max(1, n // 50_000)):
+        steps = rng.integers(-4, 5, size=near.shape).astype(np.int32)
+        parts.append((near.view(np.int32)
+                      + np.where(near >= 0, steps, -steps)).view(np.float32))
+    rest = n - sum(x.shape[0] for x in parts)
+    parts.append(rng.uniform(lower, upper, size=(rest, d)).astype(np.float32))
+    return np.concatenate(parts)
+
+
+def phase_geometry_cuda_vs_cpu(tmp: str) -> dict:
+    """Every closed-form geometry on the card against the CPU, bitwise,
+    then a small grid with a cylinder obstacle and the 2:1 balance."""
+    import sparsespatialsampling_torch as tpkg
+    out = {"phase": "geometry_cuda_vs_cpu", "cases": {}}
+    for name, cls, args in GEOMETRY_CASES:
+        pts = geometry_points(getattr(tpkg, cls)("g", False, *args))
+        d = pts.shape[1]
+        # each of the first 125 000 points the first corner of a cell one
+        # level-9 lattice step wide
+        offs = np.stack(np.meshgrid(*([[0.0, 1.0]] * d), indexing="ij"),
+                        -1).reshape(-1, d)
+        nodes = (pts[:125_000, None, :].astype(np.float64)
+                 + offs[None] / 2 ** 9).astype(np.float32)
+        case = {"n_points": int(pts.shape[0]), "n_cells": nodes.shape[0]}
+        for keep in (False, True):
+            g = getattr(tpkg, cls)("g", keep, *args)
+            got = {}
+            for dev in ("cuda", "cpu"):
+                p = torch.from_numpy(pts).to(dev)
+                c = torch.from_numpy(nodes).to(dev)
+                t0 = time.perf_counter()
+                mask = g.mask_points(p)
+                flags = [g.check_cells(c, r) for r in (False, True)]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                case[f"{dev}_s_keep_inside_{keep}"] = time.perf_counter() - t0
+                got[dev] = [mask.cpu()] + [f.cpu() for f in flags]
+            same = [torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"])]
+            if not all(same):
+                raise AssertionError(
+                    f"geometry_cuda_vs_cpu: {name} (keep_inside={keep}) "
+                    f"differs between the card and the CPU: mask, removal, "
+                    f"surface equal {same}")
+            case[f"inside_keep_inside_{keep}"] = int(got["cpu"][0].sum())
+        out["cases"][name] = case
+    out["bitwise_equal_cpu"] = True
+    xyz, metric, bounds = cylinder_wake_3d(60_000, seed=2)
+    geometries = [tpkg.CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  tpkg.CylinderGeometry3D(
+                      "cylinder", False, [[0.2, 0.2, 0.0], [0.2, 0.2, 0.41]],
+                      0.05, refine=True, min_refinement_level=6)]
+    keys = {}
+    for dev in ("cuda", "cpu"):
+        s3, _, _, t, _ = run_grid(tmp, f"geo_{dev}", xyz, metric, geometries,
+                                  device=dev, uniform_levels=4,
+                                  n_cells_max=8000, max_delta_level=True)
+        keys[dev] = grid_key(s3)
+        out[f"grid_{dev}"] = case_summary(s3, t)
+    out["grid"] = compare_grids("cylinder max_delta_level cuda and cpu",
+                                keys["cuda"], keys["cpu"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs the "
@@ -769,6 +1050,13 @@ def main() -> int:
         blocked, counts_blk = phase_blocked_layout(tmp)
         emit(blocked)
         emit(phase_large_k())
+        oat, counts_oat = phase_oat2d(tmp)
+        emit(oat)
+        cyl, counts_cyl = phase_cylinder3d(tmp)
+        emit(cyl)
+        mdl, counts_mdl = phase_mdl2d(tmp)
+        emit(mdl)
+        emit(phase_geometry_cuda_vs_cpu(tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -780,8 +1068,8 @@ def main() -> int:
     sites = {**sites3d,
              BLOCKED: blocked["kernel_at_call_sites"][BLOCKED]}
     checks = (kernel["cases"] + list(sites3d.values())
-              + list(grid2d["kernel_at_call_sites"].values())
-              + list(blocked["kernel_at_call_sites"].values()))
+              + [c for phase in (grid2d, blocked, oat, cyl, mdl)
+                 for c in phase["kernel_at_call_sites"].values()])
     timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     epoch = kernel["cases"][0]
@@ -792,6 +1080,9 @@ def main() -> int:
         "launches": counts3d["topk_smallest"],
         "launches_grid2d_metric": counts2d["topk_smallest"],
         "launches_blocked_layout": counts_blk["topk_smallest"],
+        "launches_oat2d": counts_oat["topk_smallest"],
+        "launches_cylinder3d": counts_cyl["topk_smallest"],
+        "launches_mdl2d": counts_mdl["topk_smallest"],
         "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{key: sites3d["full_scan_tile"][key] for key in timed},

@@ -4,15 +4,20 @@ sampling) for NVIDIA Hopper.
 Metric-driven adaptive quadtree/octree grid generation for CFD data
 reduction, snapshot interpolation and HDF5/XDMF export, with the public API
 and file schema of the JAX package it is ported from (the reference,
-kept beside it in the repository).  The numerics run on a torch device (``device=None`` means the
-card); the dilated-grid kNN selects through a hand-written CUDA kernel
+kept beside it in the repository): every closed-form geometry, the bbox
+pre-select route for polygons and the 2:1 balance (``max_delta_level``).
+The numerics run on a torch device (``device=None`` means the card); the
+grid kNN selects through a hand-written CUDA kernel
 (``csrc/topk_smallest.cu``).  This package imports no JAX.
 """
 from .version import __version__
 from .sparse_spatial_sampling import SparseSpatialSampling, load_s_cube
 from .export import ExportData, Fields
 from .io import Dataloader, Datawriter, XDMFWriter
-from .geometry import GeometryObject, CubeGeometry, SphereGeometry
+from .geometry import (GeometryObject, CubeGeometry, SphereGeometry,
+                       CylinderGeometry3D, GeometryCoordinates2D,
+                       TriangleGeometry, TetrahedronGeometry3D,
+                       PrismGeometry3D, PyramidGeometry3D)
 
 __all__ = [
     "__version__",
@@ -20,4 +25,6 @@ __all__ = [
     "ExportData", "Fields",
     "Dataloader", "Datawriter", "XDMFWriter",
     "GeometryObject", "CubeGeometry", "SphereGeometry",
+    "CylinderGeometry3D", "GeometryCoordinates2D", "TriangleGeometry",
+    "TetrahedronGeometry3D", "PrismGeometry3D", "PyramidGeometry3D",
 ]

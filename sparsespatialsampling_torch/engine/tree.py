@@ -22,6 +22,19 @@ never changes a cell.  Gains and metrics are computed in f32 on the device
 and kept in f64 on the host, where the top-k selection runs (gain
 descending, creation index ascending).  Levels above 22 (beyond exact f32
 lattice centres) take the f64 host path.
+
+Geometry validity outside the epochs (the uniform sweeps' removal and the
+geometry refinement) is tested on corner nodes built in f32 on the device,
+except where ``pre_select`` is on and a geometry of a pre-select type
+(``coord_2D``) takes part: then the nodes are built in f64 on the host, a
+bounding-box test settles the cells it can, and the predicate runs on the
+f32 cast of the rest — the JAX package's ``BatchedValidity`` route, whose
+nodes can differ from the device-built ones by an ulp.  The epochs test
+every geometry in full on device-built nodes in either case.
+
+With ``max_delta_level`` every refinement keeps the 2:1 balance: a cell is
+split only together with each coarser leaf that touches it by a face, an
+edge or a corner, transitively (:meth:`SamplingTree._expand_delta_level`).
 """
 import logging
 from functools import reduce
@@ -66,6 +79,10 @@ _RING_LOOP_RADIUS = 4
 _RESCUE_ROWS = 1024
 # cells per host ring epoch (the JAX package's host escalation)
 _RETRY_RING_CELLS = 256
+# geometry types whose validity outside the epochs takes the bbox
+# pre-select route when ``pre_select`` is on (the JAX package also lists
+# "STL", which the port does not have yet)
+_PRE_SELECT_TYPES = ("STL", "coord_2D")
 
 
 def _cell_size(width, level):
@@ -89,25 +106,24 @@ class SamplingTree:
     """Generate a metric-based adaptive grid from a CFD point cloud.
 
     Constructor mirrors the JAX package's ``SamplingTree`` (reference
-    ``s_cube.py:87-90``) without its process-pool and bbox pre-select
-    switches; ``device=None`` means the card."""
+    ``s_cube.py:87-90``) without its process-pool switch; ``device=None``
+    means the card."""
 
     def __init__(self, vertices, target, geometry_obj: list,
                  n_cells: int = None, uniform_level: int = 5,
                  min_metric: float = 0.75, max_delta_level: bool = False,
                  n_cells_iter_start: int = None, n_cells_iter_end: int = None,
                  relTol: Union[int, float] = 1e-3,
-                 reach_at_least: float = 0.75, device=None):
-        if max_delta_level:
-            raise NotImplementedError(
-                "max_delta_level=True is not ported yet: see ROADMAP.md, "
-                "Queue 1, item 'max_delta_level'.")
+                 reach_at_least: float = 0.75, pre_select: bool = False,
+                 device=None):
         t_init0 = time()
         self.device = resolve_device(device)
         vertices = np.asarray(vertices, dtype=np.float64)
         target = np.asarray(target, dtype=np.float64).squeeze()
 
         self._geometry = geometry_obj
+        self._pre_select = pre_select
+        self._max_delta_level = max_delta_level
         self._min_metric = min_metric
         self._n_cells_max = n_cells
         self._min_level = uniform_level
@@ -507,11 +523,60 @@ class SamplingTree:
         self._alive[dead] = False
         self._gain[dead] = 0.0
 
+    def _pre_selected(self, g) -> bool:
+        """Whether geometry ``g`` takes the bbox pre-select route outside
+        the epochs (the JAX package's "expensive" geometries)."""
+        return (self._pre_select and g.type in _PRE_SELECT_TYPES
+                and g.bounding_box() is not None)
+
     def _cell_flags(self, idx: np.ndarray, geometries,
                     refine_geometry: bool) -> np.ndarray:
+        """OR over ``geometries`` of the cell test of cells ``idx`` (host
+        bool ``[M]``), by the route of the JAX package's
+        ``BatchedValidity.from_cells``: corner nodes built in f32 on the
+        device, or, once a pre-select geometry takes part, nodes built in
+        f64 on the host for every geometry (:meth:`_cell_flags_host`)."""
+        if idx.size == 0:
+            return np.zeros(0, dtype=bool)
+        if any(self._pre_selected(g) for g in geometries):
+            return self._cell_flags_host(idx, geometries, refine_geometry)
         coords, level = self._cells_on_device(idx)
         return self._invalid_on_device(coords, level, geometries,
                                        refine_geometry).cpu().numpy()
+
+    def _cell_flags_host(self, idx: np.ndarray, geometries,
+                         refine_geometry: bool) -> np.ndarray:
+        """The cell test on f64 corner nodes built on the host.  Every
+        geometry tests their f32 cast; a pre-select geometry first lets its
+        bounding box settle the cells the box decides, and tests only the
+        rest (the candidates): where the verdict needs every node inside
+        the geometry (obstacle removal, domain surface), a cell with a node
+        outside the box is settled, and where it needs one node inside
+        (domain removal, obstacle surface), a cell with no node inside the
+        box is; a settled cell keeps the flag of a cell outside the
+        geometry."""
+        lvl = self._level[idx].astype(np.float64)
+        h = (self._width / np.exp2(lvl))[:, None, None]
+        nodes = self._lo + (self._coords[idx][:, None, :]
+                            + self._offsets[None, :, :]).astype(np.float64) * h
+        nodes32 = torch.from_numpy(nodes.astype(np.float32)).to(self.device)
+        flags = np.zeros(idx.size, dtype=bool)
+        for g in geometries:
+            if not self._pre_selected(g):
+                flags |= g.check_cells(nodes32, refine_geometry).cpu().numpy()
+                continue
+            lower, upper = g.bounding_box()
+            in_box = ((nodes >= lower) & (nodes <= upper)).all(-1)
+            needs_all = refine_geometry == g.keep_inside
+            candidates = in_box.all(-1) if needs_all else in_box.any(-1)
+            g_flags = np.full(idx.size, g.keep_inside)
+            rows = np.nonzero(candidates)[0]
+            if rows.size:
+                sel = torch.from_numpy(rows).to(self.device)
+                g_flags[rows] = g.check_cells(nodes32[sel],
+                                              refine_geometry).cpu().numpy()
+            flags |= g_flags
+        return flags
 
     def _remove_invalid_cells(self, idx: np.ndarray) -> None:
         """Mask out new cells inside obstacles / outside the domain
@@ -524,7 +589,20 @@ class SamplingTree:
 
     def _geo_refine_flags(self, g, idx: np.ndarray):
         """``(invalid, surface)`` flags of cells ``idx`` w.r.t. geometry
-        ``g``, from one set of corner nodes."""
+        ``g``: one set of device-built corner nodes serves both tests, as
+        in the JAX package's one-call route; a pre-select geometry takes
+        its two-call route instead, which tests the surface of the valid
+        cells only (a removed cell is never a surface cell).  The JAX
+        package also takes the two-call route above level 22, where it
+        gives these flags from the same device-built nodes, and for
+        geometries whose device tables are too large to fuse, which only
+        STL has (not ported)."""
+        if self._pre_selected(g):
+            invalid = self._cell_flags(idx, [g], False)
+            surface = np.zeros_like(invalid)
+            valid = np.nonzero(~invalid)[0]
+            surface[valid] = self._cell_flags(idx[valid], [g], True)
+            return invalid, surface
         coords, level = self._cells_on_device(idx)
         nodes = _corner_nodes_f32(coords, level, self._lo_t, self._width_t,
                                   self._offsets_t)
@@ -539,6 +617,63 @@ class SamplingTree:
                       / self._target_norm)
         self._metric.append(ratio)
         return ratio
+
+    # ------------------------------------------------------------------ #
+    # 2:1 balance (max_delta_level)                                      #
+    # ------------------------------------------------------------------ #
+    def _make_nb_lookup(self):
+        """Point-in-leaf lookup over the alive leaves: their indices and
+        Morton anchors on the deepest lattice, sorted by anchor, the size
+        of each one's Morton range, and the 3^d − 1 neighbour directions
+        (faces, edges and corners)."""
+        d = self._n_dimensions
+        alive = self._alive_idx()
+        anchors = morton.anchor(self._coords[alive].astype(np.uint64),
+                                self._level[alive], self._max_depth)
+        order = np.argsort(anchors)
+        leaves = alive[order]
+        sizes = morton.range_size(self._level[leaves], d, self._max_depth)
+        dirs = np.stack(np.meshgrid(*([np.array([-1, 0, 1])] * d),
+                                    indexing="ij"), axis=-1).reshape(-1, d)
+        dirs = dirs[(dirs != 0).any(axis=1)].astype(np.int64)
+        return leaves, anchors[order], sizes, dirs
+
+    def _coarser_of(self, idx: np.ndarray, lookup) -> np.ndarray:
+        """Sorted unique leaves coarser than a cell of ``idx`` that cover
+        one of its same-level neighbour positions (reference ``_check_nb``,
+        s_cube.py:447-464).  A cell of ``idx`` may be among them."""
+        leaves, anchors, sizes, dirs = lookup
+        d = self._n_dimensions
+        level = self._level[idx]
+        nb = self._coords[idx][:, None, :] + dirs[None, :, :]
+        nb_level = np.repeat(level[:, None], dirs.shape[0], axis=1)
+        on_lattice = ((nb >= 0) & (nb < (1 << nb_level[..., None]))).all(-1)
+        nb = nb[on_lattice]
+        nb_level = nb_level[on_lattice]
+        if nb.size == 0:
+            return np.zeros(0, dtype=np.int64)
+        code = morton.anchor(nb.astype(np.uint64), nb_level, self._max_depth)
+        pos = np.clip(np.searchsorted(anchors, code, side="right") - 1, 0,
+                      anchors.size - 1)
+        owner = leaves[pos]
+        covers = (anchors[pos] <= code) & (code - anchors[pos] < sizes[pos])
+        return np.unique(owner[covers & (self._level[owner] < nb_level)])
+
+    def _expand_delta_level(self, selected: np.ndarray,
+                            lookup=None) -> np.ndarray:
+        """``selected`` plus, transitively, every coarser leaf a split
+        would leave two or more levels above a neighbour (reference
+        ``_check_nb`` + ``_check_constraint``, s_cube.py:447-506); sorted
+        ascending."""
+        if lookup is None:
+            lookup = self._make_nb_lookup()
+        to_refine = np.unique(selected)
+        frontier = to_refine
+        while frontier.size:
+            frontier = np.setdiff1d(self._coarser_of(frontier, lookup),
+                                    to_refine)
+            to_refine = np.union1d(to_refine, frontier)
+        return to_refine
 
     # ------------------------------------------------------------------ #
     # refinement driver                                                  #
@@ -637,8 +772,8 @@ class SamplingTree:
 
         logger.info("Adaptive (metric-driven) refinement phase.")
         self._times["t_start_adaptive"] = time()
-        asplit = {"t_select": 0.0, "t_split": 0.0, "t_epoch": 0.0,
-                  "n_iter": 0}
+        asplit = {"t_select": 0.0, "t_expand": 0.0, "t_split": 0.0,
+                  "t_epoch": 0.0, "n_iter": 0}
         while self._check_stopping_criteria():
             if self._n_cells_max is None:
                 logger.info(f"\tStarting iteration no. {iteration_count}, "
@@ -654,13 +789,17 @@ class SamplingTree:
             selected = self._select_top_k(min(self._cells_per_iter,
                                               self._n_cells))
             t1 = time()
-            children = self._split(selected)
+            if self._max_delta_level:
+                selected = self._expand_delta_level(selected)
             t2 = time()
-            self._process_new_cells(children)
+            children = self._split(selected)
             t3 = time()
+            self._process_new_cells(children)
+            t4 = time()
             asplit["t_select"] += t1 - t0
-            asplit["t_split"] += t2 - t1
-            asplit["t_epoch"] += t3 - t2
+            asplit["t_expand"] += t2 - t1
+            asplit["t_split"] += t3 - t2
+            asplit["t_epoch"] += t4 - t3
             asplit["n_iter"] += 1
             if self._n_cells_max is None:
                 self._captured_metric()
@@ -703,7 +842,7 @@ class SamplingTree:
         for g in geometries:
             logger.info(f"Starting refining geometry {g.name}.")
             alive = self._alive_idx()
-            surface = alive[self._geo_refine_flags(g, alive)[1]]
+            surface = alive[self._cell_flags(alive, [g], True)]
             if surface.size == 0:
                 logger.warning("Could not find any cells to refine. "
                                "Skipping geometry refinement.")
@@ -717,6 +856,18 @@ class SamplingTree:
             while gmax > gmin:
                 logger.info(f"\tRefining level {gmin + 1} / {gmax}.")
                 to_refine = surface[self._level[surface] < gmax]
+                if self._max_delta_level and surface.size:
+                    # the 2:1 check covers every surface cell, those
+                    # already at the target level too, and refines a
+                    # coarser neighbour it finds even when that neighbour
+                    # is itself a surface cell at the target level
+                    # (reference s_cube.py:826-848)
+                    lookup = self._make_nb_lookup()
+                    direct = self._coarser_of(surface, lookup)
+                    if direct.size:
+                        to_refine = np.union1d(
+                            to_refine,
+                            self._expand_delta_level(direct, lookup))
                 if to_refine.size == 0:
                     break
                 children = self._split(to_refine)

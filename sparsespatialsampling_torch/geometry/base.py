@@ -8,7 +8,17 @@ vectorised inside-test
 that takes a torch tensor on any device, or a numpy array.  On a tensor the
 geometry's constants are cast to the tensor's dtype first, so the engine's
 f32 corner nodes are tested in f32 exactly as the JAX package tests them;
-on a numpy array the test runs in the array's own precision.
+a numpy array is tested as a CPU tensor of its own precision (f32 stays
+f32, anything else is f64) and answered as a numpy array.
+
+The f32 arithmetic of each predicate is the one XLA's CPU backend compiles
+the JAX package's expression to, so the port's flags equal the JAX
+package's bit for bit on the same f32 points, and the card gives the CPU's
+flags: a product followed by an add or a subtract is one fused
+multiply-add (:func:`fma`, emulated through f64), a division by a
+constant is a multiplication by the constant's f32 reciprocal
+(:func:`reciprocal`), and sums over the coordinate axis run in axis order.
+Square roots are correctly rounded (:func:`sqrt`).
 """
 import logging
 from abc import ABC, abstractmethod
@@ -16,28 +26,34 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
+from ..ops.knn import _fma as fma
+from ..ops.knn import _sqrt as sqrt
+
 logger = logging.getLogger(__name__)
 
 
-def as_like(points, value):
-    """``value`` as an array of ``points``' kind: a tensor of its dtype on
-    its device, or a float64 numpy array."""
-    if isinstance(points, torch.Tensor):
-        return torch.as_tensor(np.asarray(value), dtype=points.dtype,
-                               device=points.device)
-    return np.asarray(value, dtype=np.float64)
+def as_like(points: torch.Tensor, value) -> torch.Tensor:
+    """``value`` as a tensor of ``points``' dtype on its device."""
+    return torch.as_tensor(np.asarray(value), dtype=points.dtype,
+                           device=points.device)
 
 
-def squared_norm(delta):
-    """``Σ_a delta[..., a]²``: explicit adds in axis order for a tensor (the
-    order XLA reduces three terms in), numpy's own sum for an array."""
-    if isinstance(delta, torch.Tensor):
-        dd = delta * delta
-        out = dd[..., 0]
-        for a in range(1, dd.shape[-1]):
-            out = out + dd[..., a]
-        return out
-    return (delta * delta).sum(axis=-1)
+def reciprocal(points: torch.Tensor, value) -> torch.Tensor:
+    """``1 / value`` rounded once in ``points``' dtype, on its device: what
+    XLA folds a division by the constant ``value`` into."""
+    one = torch.ones((), dtype=points.dtype)
+    return (one / torch.as_tensor(np.asarray(value), dtype=points.dtype)
+            ).to(points.device)
+
+
+def dot(u, v) -> torch.Tensor:
+    """``Σ_a u[a]·v[a]`` over coordinate components given as sequences,
+    the first product rounded alone and each later one added by a fused
+    multiply-add: XLA's CPU reduction of ``(u * v).sum(-1)``."""
+    out = u[0] * v[0]
+    for a in range(1, len(u)):
+        out = fma(u[a], v[a], out)
+    return out
 
 
 class GeometryObject(ABC):
@@ -60,11 +76,20 @@ class GeometryObject(ABC):
         self._min_refinement_level = min_refinement_level
         self._check_common_arguments()
 
-    @abstractmethod
     def mask_points(self, points):
         """Vectorised inside-test: ``points [M, d]`` (tensor or numpy) →
         bool ``[M]``, True for points inside (or on the surface of) the
-        geometry."""
+        geometry; a tensor for a tensor, a numpy array otherwise."""
+        if isinstance(points, torch.Tensor):
+            return self._inside(points)
+        arr = np.asarray(points)
+        if arr.dtype != np.float32:
+            arr = arr.astype(np.float64)
+        return self._inside(torch.from_numpy(arr)).numpy()
+
+    @abstractmethod
+    def _inside(self, points: torch.Tensor) -> torch.Tensor:
+        """:meth:`mask_points` on a float tensor ``[M, d]``."""
 
     def check_cells(self, cell_nodes, refine_geometry: bool = False):
         """Vectorised cell test on ``cell_nodes [M, n_nodes, d]``.  With
@@ -75,6 +100,31 @@ class GeometryObject(ABC):
         m, n, d = cell_nodes.shape
         mask = self.mask_points(cell_nodes.reshape(m * n, d)).reshape(m, n)
         return apply_mask(mask, self._keep_inside, refine_geometry)
+
+    def check_cell(self, cell_nodes, refine_geometry: bool = False) -> bool:
+        """:meth:`check_cells` of one cell's nodes ``[n_nodes, d]``, tested
+        in f64 (the JAX package's single-cell API)."""
+        nodes = np.asarray(cell_nodes, dtype=np.float64)[None]
+        return bool(self.check_cells(nodes, refine_geometry)[0])
+
+    def pre_check_cell(self, cell_nodes,
+                       refine_geometry: bool = False) -> bool:
+        """:meth:`check_cell` against the bounding box instead of the
+        geometry itself, where there is one: the cheap test that settles
+        cells the box already decides."""
+        bounds = self.bounding_box()
+        if bounds is None:
+            return self.check_cell(cell_nodes, refine_geometry)
+        lower, upper = bounds
+        nodes = np.asarray(cell_nodes, dtype=np.float64)
+        in_box = ((nodes >= lower) & (nodes <= upper)).all(-1)
+        return bool(apply_mask(in_box[None], self._keep_inside,
+                               refine_geometry)[0])
+
+    def bounding_box(self):
+        """``(lower, upper)`` f64 corners of an axis-aligned box holding
+        the geometry, or None where the geometry offers none."""
+        return None
 
     def _check_common_arguments(self) -> None:
         if self._name == "":

@@ -22,7 +22,7 @@ class CubeGeometry(GeometryObject):
         self._main_width = float(np.max(np.abs(self._upper - self._lower)))
         self._center = (self._lower + self._upper) / 2.0
 
-    def mask_points(self, points):
+    def _inside(self, points):
         if points.shape[-1] != len(self._lower_bound):
             raise ValueError(
                 f"Dimension mismatch for geometry {self.name}: the queried "
@@ -31,6 +31,9 @@ class CubeGeometry(GeometryObject):
         inside = ((points >= as_like(points, self._lower))
                   & (points <= as_like(points, self._upper)))
         return inside.all(-1)
+
+    def bounding_box(self):
+        return self._lower, self._upper
 
     def _check_geometry(self) -> None:
         if not self._lower_bound or not self._upper_bound:

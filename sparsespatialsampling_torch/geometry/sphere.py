@@ -5,7 +5,7 @@ Port of the JAX package's ``geometry/sphere.py`` (reference
 """
 import numpy as np
 
-from .base import GeometryObject, as_like, squared_norm
+from .base import GeometryObject, as_like, dot
 
 
 class SphereGeometry(GeometryObject):
@@ -19,14 +19,18 @@ class SphereGeometry(GeometryObject):
         self._main_width = float(self._radius)
         self._center = np.asarray(self._position, dtype=np.float64)
 
-    def mask_points(self, points):
+    def _inside(self, points):
         if points.shape[-1] != len(self._position):
             raise ValueError(
                 f"Dimension mismatch for geometry {self.name}: the queried "
                 f"points are {points.shape[-1]}-D but the sphere center has "
                 f"{len(self._position)} components.")
         delta = points - as_like(points, self._center)
-        return squared_norm(delta) <= self._radius ** 2
+        rel = [delta[:, a] for a in range(delta.shape[1])]
+        return dot(rel, rel) <= self._radius ** 2
+
+    def bounding_box(self):
+        return self._center - self._radius, self._center + self._radius
 
     def _check_geometry(self) -> None:
         if not self._position:

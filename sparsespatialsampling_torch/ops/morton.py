@@ -57,6 +57,21 @@ def encode(coords: np.ndarray) -> np.ndarray:
     raise ValueError(f"Unsupported dimensionality {d}.")
 
 
+def anchor(coords: np.ndarray, level: np.ndarray, depth: int) -> np.ndarray:
+    """Morton code of a cell's first descendant on the depth-``depth``
+    lattice (uint64): the start of the range of codes the cell owns."""
+    d = coords.shape[-1]
+    shift = np.uint64(d) * (np.uint64(depth) - level.astype(np.uint64))
+    return encode(coords) << shift
+
+
+def range_size(level: np.ndarray, d: int, depth: int) -> np.ndarray:
+    """Number of depth-``depth`` Morton codes a cell at ``level`` owns
+    (uint64)."""
+    return np.uint64(1) << (np.uint64(d)
+                            * (np.uint64(depth) - level.astype(np.uint64)))
+
+
 def node_keys(coords: np.ndarray, level: np.ndarray, corner_offsets: np.ndarray,
               depth: int) -> np.ndarray:
     """Unique integer keys of the corner nodes of each cell.

@@ -60,15 +60,18 @@ class SparseSpatialSampling:
         :param uniform_levels: number of uniform refinement cycles
         :param n_cells_max: max number of cells (overrides ``min_metric``)
         :param min_metric: target captured-metric fraction
-        :param max_delta_level: not ported yet; True raises
+        :param max_delta_level: keep neighbouring leaves (across faces,
+            edges and corners) within one level of each other
         :param n_cells_iter_start: cells refined per iteration at the start
         :param n_cells_iter_end: cells refined per iteration at the end
         :param n_jobs: accepted for reference drop-in use; ignored
         :param relTol: min improvement between consecutive iterations
         :param reach_at_least: fraction of the target to reach before the
             relTol stopping criterion arms
-        :param pre_select_cells: accepted for drop-in use; the ported
-            geometries need no bbox pre-selection
+        :param pre_select_cells: test polygon (``coord_2D``) geometries
+            outside the refinement epochs on host-built f64 corner nodes,
+            settling the cells their bounding box decides first, as the JAX
+            package does
         :param device: torch device of the numerics; None means ``cuda``
             (raises when there is no card)
         """
@@ -102,6 +105,7 @@ class SparseSpatialSampling:
                                   else int(n_cells_iter_end))
         self._relTol = relTol
         self._reach_at_least = reach_at_least
+        self._pre_select_cells = pre_select_cells
 
         self._check_input()
 
@@ -113,7 +117,7 @@ class SparseSpatialSampling:
             n_cells_iter_end=self._n_cells_iter_end,
             n_cells_iter_start=self._n_cells_iter_start,
             relTol=self._relTol, reach_at_least=self._reach_at_least,
-            device=self.device)
+            pre_select=self._pre_select_cells, device=self.device)
 
     def execute_grid_generation(self) -> None:
         """Run the refinement and persist the results (reference

@@ -3,10 +3,17 @@ pure-numpy oracle.
 
 - ``SparseSpatialSampling(device="cpu")`` of the port and the JAX package
   grow identical grids — same lexsorted centres and levels, same iteration
-  count, captured-metric trace to rtol 1e-5 — in both stopping modes, and
-  through the grid kNN's exact fallback and geometry refinement in 3D.
-- The port reproduces ``tests/oracle.py`` on the cases of
-  ``tests/test_oracle_parity.py:91``, ``:98`` and ``:125``.
+  count, captured-metric trace to rtol 1e-5 — in both stopping modes,
+  through the grid kNN's exact fallback and geometry refinement in 3D, with
+  a cylinder obstacle, with a polygon obstacle under ``pre_select_cells``
+  and with ``max_delta_level``.
+- The port reproduces ``tests/oracle.py`` and the JAX package on the cases
+  of ``tests/test_oracle_parity.py:91``, ``:98``, ``:107``, ``:116``,
+  ``:125`` and ``:134``.
+- With ``pre_select_cells`` the port's validity flags of the uniform
+  sweeps and the geometry refinement equal the JAX package's
+  ``BatchedValidity(..., pre_select=True).from_cells`` on cells whose
+  device-built nodes give other flags.
 - ``ExportData.export`` of both packages on the same grid writes the same
   HDF5 grid datasets, field datasets (at centres and vertices) to rtol
   1e-6, and an XDMF that parses; ``ExportData.interpolate`` returns the
@@ -25,6 +32,8 @@ torch = pytest.importorskip("torch")
 import h5py  # noqa: E402
 
 import sparsespatialsampling_tpu as jpkg  # noqa: E402
+from chip_smoke import (airfoil_polygon, synthetic_oat15,  # noqa: E402
+                        unbalanced)
 import sparsespatialsampling_torch as tpkg  # noqa: E402
 from sparsespatialsampling_tpu.ops.knn import KNNIndex as JaxKNN  # noqa: E402
 from sparsespatialsampling_torch.ops.knn import (  # noqa: E402
@@ -68,6 +77,42 @@ def _geoms_3d(pkg):
                                refine=True, min_refinement_level=5)]
 
 
+def _cloud_airfoil():
+    """``chip_smoke.py``'s OAT15 cloud (``bench.py:233-272``) at 12,000
+    points around the 240-vertex airfoil."""
+    xy, metric, _ = synthetic_oat15(12_000)
+    return xy, metric
+
+
+def _geoms_airfoil(pkg):
+    return [pkg.CubeGeometry("domain", True, [-0.5, -0.5], [1.5, 0.5]),
+            pkg.GeometryCoordinates2D("airfoil", False, airfoil_polygon(),
+                                      refine=True)]
+
+
+def _cloud_3d_cylinder():
+    """A 3D cloud with a cylindrical hole along z (r < 0.12) around the
+    cylinder obstacle (r = 0.1)."""
+    rng = np.random.default_rng(4)
+    xyz = rng.uniform(0, 1, size=(8000, 3))
+    xyz = xyz[np.linalg.norm(xyz[:, :2] - [0.4, 0.5], axis=1) > 0.12][:6000]
+    metric = np.exp(-((xyz[:, :2] - [0.65, 0.5]) ** 2).sum(1) / 0.03) + 0.01
+    return xyz, metric
+
+
+def _geoms_3d_cylinder(pkg):
+    return [pkg.CubeGeometry("domain", True, [0, 0, 0], [1, 1, 1]),
+            pkg.CylinderGeometry3D("cylinder", False,
+                                   [[0.4, 0.5, 0.0], [0.4, 0.5, 1.0]], 0.1,
+                                   refine=True, min_refinement_level=5)]
+
+
+def _geoms_2d_refined(pkg):
+    return [pkg.CubeGeometry("domain", True, [0, 0], [1, 1]),
+            pkg.SphereGeometry("hole", False, [0.3, 0.5], 0.05, refine=True,
+                               min_refinement_level=7)]
+
+
 CASES = {
     "2d-cells": (_cloud_2d_hole, _geoms_2d,
                  {"uniform_levels": 3, "n_cells_max": 2000}),
@@ -75,6 +120,15 @@ CASES = {
                   {"uniform_levels": 3, "min_metric": 0.9}),
     "3d-void-sphere-refine": (_cloud_3d_void, _geoms_3d,
                               {"uniform_levels": 2, "n_cells_max": 1500}),
+    "2d-airfoil-preselect-refine": (_cloud_airfoil, _geoms_airfoil,
+                                    {"uniform_levels": 5,
+                                     "n_cells_max": 3000,
+                                     "pre_select_cells": True}),
+    "3d-cylinder-refine": (_cloud_3d_cylinder, _geoms_3d_cylinder,
+                           {"uniform_levels": 3, "n_cells_max": 1500}),
+    "2d-max-delta-level-refine": (_cloud_2d_hole, _geoms_2d_refined,
+                                  {"uniform_levels": 3, "n_cells_max": 2000,
+                                   "max_delta_level": True}),
 }
 
 
@@ -124,31 +178,38 @@ def test_grid_matches_jax(grids, case):
     np.testing.assert_allclose(b.data_final_mesh["metric_per_iter"],
                                a.data_final_mesh["metric_per_iter"],
                                rtol=1e-5)
-    if case.startswith("3d"):
+    if case == "3d-void-sphere-refine":
         # the ring re-answered the grid's bad queries and changed nothing
         assert b.data_final_mesh["epoch_stats"]["ring_queries"] > 0
 
 
-def _oracle_case(points, metric, obstacle, **kwargs):
+def _oracle_case(points, metric, obstacle, max_delta_level=False,
+                 **kwargs):
+    """The port, the oracle and the JAX package on one case; the 2:1
+    balance is on with ``max_delta_level``."""
     d = points.shape[1]
     lo, hi = [0.0] * d, [1.0] * d
-    geoms = [tpkg.CubeGeometry("domain", True, lo, hi)]
+
+    def geoms(pkg):
+        out = [pkg.CubeGeometry("domain", True, lo, hi)]
+        if obstacle is not None:
+            center, radius, refine, min_level = obstacle
+            out.append(pkg.SphereGeometry("hole", False, center, radius,
+                                          refine=refine,
+                                          min_refinement_level=min_level))
+        return out
     o_geoms = [OracleGeometry("domain", True, cube_inside(lo, hi),
                               main_width=1.0, center=np.full(d, 0.5))]
     if obstacle is not None:
         center, radius, refine, min_level = obstacle
-        geoms.append(tpkg.SphereGeometry("hole", False, center, radius,
-                                         refine=refine,
-                                         min_refinement_level=min_level))
         o_geoms.append(OracleGeometry("hole", False,
                                       sphere_inside(center, radius),
                                       refine=refine,
                                       min_refinement_level=min_level))
-    s3 = tpkg.SparseSpatialSampling(points, metric, geoms,
-                                    save_path=tempfile.mkdtemp(),
-                                    save_name="o", device="cpu", **kwargs)
-    s3.execute_grid_generation()
-    return s3, OracleS3(points, metric, o_geoms, **kwargs).refine()
+    kwargs["max_delta_level"] = max_delta_level
+    s3 = _run(tpkg, points, metric, geoms, **kwargs)
+    return (s3, OracleS3(points, metric, o_geoms, **kwargs).refine(),
+            _run(jpkg, points, metric, geoms, **kwargs))
 
 
 @pytest.mark.parametrize("cloud,obstacle,kwargs", [
@@ -158,11 +219,38 @@ def _oracle_case(points, metric, obstacle, **kwargs):
      dict(uniform_levels=2, n_cells_max=400, n_cells_iter_start=12)),
     (lambda: _cloud_3d(), ([0.3, 0.3, 0.3], 0.1, False, None),
      dict(uniform_levels=1, min_metric=0.8, n_cells_iter_start=8)),
-], ids=["2d-metric", "2d-cells-geometry-refinement", "3d-metric"])
+    (lambda: _cloud_2d(seed=3), ([0.35, 0.5], 0.08, True, 5),
+     dict(uniform_levels=2, min_metric=0.85, max_delta_level=True,
+          n_cells_iter_start=10)),
+    (lambda: _cloud_2d(seed=5), ([0.35, 0.5], 0.08, True, 5),
+     dict(uniform_levels=2, n_cells_max=500, max_delta_level=True,
+          n_cells_iter_start=12)),
+    (lambda: _cloud_3d(seed=9), ([0.3, 0.3, 0.3], 0.1, True, 3),
+     dict(uniform_levels=1, n_cells_max=300, max_delta_level=True,
+          n_cells_iter_start=8)),
+], ids=["2d-metric", "2d-cells-geometry-refinement", "3d-metric",
+        "2d-max-delta-level", "2d-cells-max-delta-level",
+        "3d-max-delta-level-geometry"])
 def test_oracle_parity(cloud, obstacle, kwargs):
     points, metric = cloud()
-    s3, oracle = _oracle_case(points, metric, obstacle, **kwargs)
+    s3, oracle, jax_s3 = _oracle_case(points, metric, obstacle, **kwargs)
     _assert_identical(s3, oracle)
+    ca, la = _grid_key(jax_s3)
+    cb, lb = _grid_key(s3)
+    np.testing.assert_array_equal(lb, la)
+    np.testing.assert_array_equal(cb, ca)
+    assert (s3.data_final_mesh["iterations"]
+            == jax_s3.data_final_mesh["iterations"])
+    if kwargs.get("max_delta_level"):
+        _assert_balanced(s3)
+
+
+def _assert_balanced(s3):
+    """No two leaves that share a face, an edge or a corner differ by more
+    than one level: the 2:1 balance ``max_delta_level`` keeps (domain
+    [0, 1]^d, so the lattice starts at 0)."""
+    assert unbalanced(np.asarray(s3.centers), s3.levels, 0.0,
+                      s3.size_initial_cell) == 0
 
 
 def _h5_items(path):
@@ -233,10 +321,3 @@ def test_checkpoint_round_trip(grids):
     assert info["n_cells"] == b.centers.shape[0]
 
 
-def test_max_delta_level_is_not_ported():
-    xy, metric = _cloud_2d()
-    with pytest.raises(NotImplementedError, match="max_delta_level"):
-        tpkg.SparseSpatialSampling(xy, metric, _geoms_2d(tpkg),
-                                   save_path=tempfile.mkdtemp(),
-                                   save_name="m", max_delta_level=True,
-                                   device="cpu")
