@@ -70,13 +70,34 @@ Phases:
   corner nodes of levels 5-12, points within a few ulps of the surface,
   points around it) on the card and on the CPU, bitwise; then a 60 000-point
   3D case with a cylinder obstacle and ``max_delta_level=True`` on the
-  card and on the CPU, whose grids must be identical.
+  card and on the CPU, whose grids must be identical;
+- ``winding_kernel``: ``winding_number`` against its plain version on the
+  card at [1024, 51552] (the ``stl3d`` mesh, a near-band batch of the JAX
+  package's ``_MASK_CHUNK``), at [16384, 5664] and at two edge shapes
+  ([1, 1003], [257, 1025]); points uniform, within 1e-4 of the sphere's
+  radius, and on triangle vertices and edges.  ``|Δw| ≤ 1e-4``, flags
+  ``w > 0.5`` equal at every point farther than 1e-5 from the mesh, and a
+  shuffled batch and a prefix batch give each point bitwise the same
+  ``w``; device times of the kernel and the plain version beside the
+  operation bound;
+- ``stl3d``: bench workload 4 (``bench.py:460-498``), not cut: 200 000
+  points (seed 2) around the 51 552-triangle sphere STL refined to level 6,
+  ``uniform_levels=4``, 40 000 cells, no export; it prints the sign grid's
+  near-band voxels and the near-band points of each winding call, and
+  both kernels must launch; cells and iterations are pinned;
+- ``stl_cuda_vs_cpu``: ``mask_points`` and ``check_cells`` (both modes,
+  both polarities) of the 5 664-triangle sphere STL on 1 000 000 seeded
+  points, on the card and on the CPU, by the exact route and by fast
+  winding (``_FW_MIN_TRIS`` lowered), flags equal; then a 30 000-point cut
+  of the ``stl3d`` cloud around that sphere refined to level 6, whose
+  grids on the card and on the CPU must be identical.
 
 The launch counters are set to 0 just before each main-path run and read
-just after it; every main-path run must have launched every kernel, from
-each of its required call sites (the grid selection, the ring's, the full
-scan's per-tile selection and its merge; the blocked layout's in the
-``blocked_layout`` run), the sites' launches must add up to the kernel's
+just after it; every main-path run must have launched every kernel of its
+path (``winding_number`` is on ``stl3d``'s only), from each of its required
+call sites (the grid selection, the ring's, the full scan's per-tile
+selection and its merge; the blocked layout's in the ``blocked_layout``
+run), the sites' launches must add up to the kernel's
 counter, and no selection may have gone to the stable sort.  The largest
 kernel input each call site got in a main-path run is held (a reference,
 not a copy) and, after the run, compared and timed again, so the reported
@@ -85,6 +106,7 @@ times are at the shapes the main path gives the kernel.
 import importlib.util
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -129,11 +151,19 @@ def cuda_ms(fn, x: torch.Tensor, min_reps: int = 10,
     copies = [x] + [x.clone() for _ in range(n_copies - 1)]
     reps = max(min_reps, n_copies)
     fn(x)
+    return replay_ms(lambda i: fn(copies[i % n_copies]), reps, rounds)
+
+
+def replay_ms(call, reps: int, rounds: int = 5) -> float:
+    """Device time of one ``call(i)`` in milliseconds: ``call(0)`` …
+    ``call(reps - 1)`` captured in a CUDA graph, the graph replayed
+    ``rounds`` times between CUDA events, the median replay divided by
+    ``reps``."""
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(reps):
-            fn(copies[i % n_copies])
+            call(i)
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -145,7 +175,7 @@ def cuda_ms(fn, x: torch.Tensor, min_reps: int = 10,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    del graph, copies
+    del graph
     return float(np.median(times))
 
 
@@ -240,7 +270,7 @@ MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
 # exact route answers each query
 EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67),
             "oat2d": (27_084, 33), "cylinder3d": (151_370, 43),
-            "mdl2d": (28_406, 34)}
+            "mdl2d": (28_406, 34), "stl3d": (40_202, 29)}
 
 
 def site_of(frame) -> str:
@@ -293,13 +323,15 @@ class KernelTap:
 
 
 def reset_counts() -> None:
-    from sparsespatialsampling_torch.ops import topk
+    from sparsespatialsampling_torch.ops import topk, winding
     topk.launches = 0
+    winding.launches = 0
 
 
 def read_counts() -> dict:
-    from sparsespatialsampling_torch.ops import topk
-    return {"topk_smallest": topk.launches}
+    from sparsespatialsampling_torch.ops import topk, winding
+    return {"topk_smallest": topk.launches,
+            "winding_number": winding.launches}
 
 
 def cylinder_wake_3d(n_points: int = 500_000, seed: int = 1):
@@ -502,17 +534,19 @@ def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
 
 
 def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
-                  export=None, sites=MAIN_SITES, **kw):
+                  export=None, sites=MAIN_SITES, kernels=("topk_smallest",),
+                  **kw):
     """One main-path run with the counters set to 0 just before it and read
-    just after; every kernel, and each of ``sites``, must have launched,
-    and no selection may have taken the stable sort."""
+    just after; each of ``kernels`` (those of the run's path) and each of
+    ``sites`` must have launched, and no selection may have taken the
+    stable sort."""
     with KernelTap() as tap:
         reset_counts()
         s3, exp, field, t, tree = run_grid(tmp, name, pts, metric,
                                            geometries, export, **kw)
         torch.cuda.synchronize()
         counts = read_counts()
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = [n for n in kernels if counts[n] == 0]
     missing += [s for s in sites if not tap.launches.get(s)]
     if missing:
         raise AssertionError(f"{phase}: kernels or call sites never "
@@ -929,6 +963,18 @@ GEOMETRY_CASES = [
 ]
 
 
+def lattice_points(lower, upper, n: int, rng) -> list:
+    """``n`` / 20 corner nodes of the unit lattice in the box at each of the
+    levels 5-12, f32 (``c·h`` rounded once)."""
+    parts = []
+    for level in range(5, 13):
+        h = np.float32(1.0 / 2 ** level)
+        c = rng.integers(np.floor(lower / h), np.ceil(upper / h) + 1,
+                         size=(n // 20, lower.size))
+        parts.append((c * np.float64(h)).astype(np.float32))
+    return parts
+
+
 def geometry_points(g, n: int = 1_000_000, seed: int = 0) -> np.ndarray:
     """``n`` seeded f32 points around geometry ``g``'s bounding box: corner
     nodes of the unit lattice at levels 5-12 (``c·h`` rounded once), points
@@ -939,12 +985,7 @@ def geometry_points(g, n: int = 1_000_000, seed: int = 0) -> np.ndarray:
     lower, upper = g.bounding_box()
     lower, upper = np.asarray(lower) - 0.05, np.asarray(upper) + 0.05
     d = lower.size
-    parts = []
-    for level in range(5, 13):
-        h = np.float32(1.0 / 2 ** level)
-        c = rng.integers(np.floor(lower / h), np.ceil(upper / h) + 1,
-                         size=(n // 20, d))
-        parts.append((c * np.float64(h)).astype(np.float32))
+    parts = lattice_points(lower, upper, n, rng)
     p = rng.uniform(lower, upper, size=(200_000, d))
     m = g.mask_points(p)
     k = min(int(m.sum()), int((~m).sum()), 10_000)
@@ -1017,6 +1058,343 @@ def phase_geometry_cuda_vs_cpu(tmp: str) -> dict:
     return out
 
 
+# the STL obstacle of bench workload 4: a closed lat-lon sphere
+STL_CENTER = np.array([0.2, 0.2, 0.2])
+STL_RADIUS = 0.05
+# f32 operations per (point, triangle) pair of the winding number: 9
+# differences, 3 norms of 6 (3 products, 2 sums, a root), the cross
+# product's 9, four dot products of 5, denom's 8 (5 products, 3 sums), and
+# the atan2 and the running sum counted as one each
+WINDING_OPS_PER_PAIR = 66
+
+
+def sphere_stl(path: str, n_lat: int = 180, n_lon: int = 144) -> int:
+    """Write the closed sphere STL of ``bench.py:431-457`` (r 0.05 at
+    (0.2, 0.2, 0.2): interior latitude rings as quad pairs, the poles as
+    fans, the seam shared by index wrap) with the port's ``write_stl``;
+    51 552 triangles by default, 5 664 at 60 x 48.  Returns the count."""
+    from sparsespatialsampling_torch.geometry.stl import write_stl
+    th = np.linspace(0.0, np.pi, n_lat + 1)[1:-1]
+    ph = np.arange(n_lon) / n_lon * 2.0 * np.pi
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    ring = (np.stack([STL_RADIUS * np.sin(t) * np.cos(p),
+                      STL_RADIUS * np.sin(t) * np.sin(p),
+                      STL_RADIUS * np.cos(t)], axis=-1)
+            + STL_CENTER).astype(np.float32)
+    nxt = np.roll(np.arange(n_lon), -1)
+    top = (STL_CENTER + [0, 0, STL_RADIUS]).astype(np.float32)
+    bot = (STL_CENTER - [0, 0, STL_RADIUS]).astype(np.float32)
+    tris = [np.stack([np.broadcast_to(top, (n_lon, 3)),
+                      ring[0], ring[0][nxt]], axis=1),
+            np.stack([np.broadcast_to(bot, (n_lon, 3)),
+                      ring[-1][nxt], ring[-1]], axis=1)]
+    a, b = ring[:-1], ring[1:]
+    tris.append(np.stack([a, b, b[:, nxt]], axis=2).reshape(-1, 3, 3))
+    tris.append(np.stack([a, b[:, nxt], a[:, nxt]], axis=2).reshape(-1, 3, 3))
+    tris = np.concatenate(tris)
+    write_stl(path, tris)
+    return tris.shape[0]
+
+
+def stl_cloud():
+    """The cloud of bench workload 4 (``bench.py:466-473``): 220 000
+    uniform points (seed 2) minus the ball, the first 200 000 kept, and the
+    metric ``exp(-max(r - 0.05, 0) / 0.1) + 0.01``."""
+    bounds = [[0.0, 0.0, 0.0], [0.6, 0.4, 0.4]]
+    rng = np.random.default_rng(2)
+    xyz = rng.uniform(bounds[0], bounds[1], size=(220_000, 3))
+    xyz = xyz[np.linalg.norm(xyz - STL_CENTER, axis=1) > STL_RADIUS][:200_000]
+    r = np.linalg.norm(xyz - STL_CENTER, axis=1)
+    metric = np.exp(-np.maximum(r - STL_RADIUS, 0) / 0.1) + 0.01
+    return xyz, metric, bounds
+
+
+def winding_points(tris: np.ndarray, m: int, seed: int) -> np.ndarray:
+    """``m`` seeded f32 points, shuffled: a quarter uniform in the
+    ``stl3d`` domain, half within 1e-4 of the sphere's radius, an eighth
+    on triangle vertices and an eighth on triangle edges."""
+    rng = np.random.default_rng(seed)
+    n_u, n_v, n_e = m // 4, m // 8, m // 8
+    n_s = m - n_u - n_v - n_e
+    uniform = rng.uniform([0, 0, 0], [0.6, 0.4, 0.4], size=(n_u, 3))
+    d = rng.normal(size=(n_s, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    shell = STL_CENTER + d * (STL_RADIUS
+                              + rng.uniform(-1e-4, 1e-4, size=(n_s, 1)))
+    t = rng.integers(0, tris.shape[0], size=n_v)
+    verts = tris[t, rng.integers(0, 3, size=n_v)]
+    t = rng.integers(0, tris.shape[0], size=n_e)
+    j = rng.integers(0, 3, size=n_e)
+    s = rng.uniform(size=(n_e, 1))
+    edges = tris[t, j] + s * (tris[t, (j + 1) % 3] - tris[t, j])
+    pts = np.concatenate([uniform, shell, verts, edges]).astype(np.float32)
+    return pts[rng.permutation(m)]
+
+
+def far_from_mesh(pts: np.ndarray, tris: np.ndarray,
+                  margin: float = 1e-5) -> np.ndarray:
+    """Whether each point lies farther than ``margin`` from every triangle
+    of a mesh around ``STL_CENTER`` (any subset of the sphere's): beyond
+    the farthest vertex's radius by more than ``margin``, or inside the
+    nearest triangle plane's distance by more than ``margin``."""
+    r_out = np.linalg.norm(tris.reshape(-1, 3) - STL_CENTER, axis=1).max()
+    n = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    r_in = np.abs(np.einsum("td,td->t", tris[:, 0] - STL_CENTER, n)).min()
+    r = np.linalg.norm(pts.astype(np.float64) - STL_CENTER, axis=1)
+    return (r > r_out + margin) | (r < r_in - margin)
+
+
+def winding_bound(m: int, t: int):
+    """Least time for ``m`` points' winding numbers over ``t`` triangles:
+    points and vertices read once and ``w`` written once, against
+    ``WINDING_OPS_PER_PAIR`` f32 operations per pair at the f32 rate.
+    Returns ``(bound_ms, bound_by)``."""
+    t_bytes = (m * 12 + t * 36 + m * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = WINDING_OPS_PER_PAIR * m * t / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def check_winding(p: torch.Tensor, tris: np.ndarray, seed: int,
+                  timed: bool = True) -> dict:
+    """Kernel against its plain version on the card on CUDA points ``p``
+    and the f32 triangles ``tris``: ``|Δw| ≤ 1e-4``, flags ``w > 0.5``
+    equal at every point farther than 1e-5 from the mesh, and a shuffled
+    batch and a prefix batch bitwise equal point for point; CUDA-graph
+    device times."""
+    from sparsespatialsampling_torch.ops import winding
+    m, t = p.shape[0], tris.shape[0]
+    v = [torch.from_numpy(np.ascontiguousarray(tris[:, i], dtype=np.float32)
+                          ).cuda() for i in range(3)]
+    w = winding.winding_number(p, *v)
+    wp = winding.winding_number_plain(p, *v)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(m)).cuda()
+    head = max(1, m // 3)
+    same = (torch.equal(winding.winding_number(p[perm].contiguous(), *v),
+                        w[perm])
+            and torch.equal(winding.winding_number(p[:head].contiguous(), *v),
+                            w[:head]))
+    err = float((w - wp).abs().max())
+    far = torch.from_numpy(far_from_mesh(p.cpu().numpy(), tris)).cuda()
+    differ = (w > 0.5) != (wp > 0.5)
+    res = {"shape": [m, t], "max_abs_err": err,
+           "far_points": int(far.sum()),
+           "flags_differ_far": int((differ & far).sum()),
+           "flags_differ_near": int((differ & ~far).sum()),
+           "batch_bitwise": same, "inside": int((w > 0.5).sum())}
+    if not (err <= 1e-4 and res["flags_differ_far"] == 0 and same
+            and bool(torch.isfinite(w).all())):
+        raise AssertionError(f"winding_number kernel disagrees with its "
+                             f"plain version: {res}")
+    if timed:
+        bound, by = winding_bound(m, t)
+        res.update(
+            ms=replay_ms(lambda i: winding.winding_number(p, *v), 10),
+            plain_ms=replay_ms(lambda i: winding.winding_number_plain(p, *v),
+                               2),
+            bound_ms=bound, bound_by=by, library_ms=None)
+    return res
+
+
+def phase_winding_kernel(tmp: str) -> tuple:
+    """The winding kernel against its plain version.  Returns the phase's
+    line and the 51 552- and 5 664-triangle spheres."""
+    from sparsespatialsampling_torch.geometry.stl import read_stl
+    meshes = []
+    for n_lat, n_lon, n_tri in ((180, 144, 51_552), (60, 48, 5_664)):
+        path = os.path.join(tmp, f"sphere_{n_tri}.stl")
+        if sphere_stl(path, n_lat, n_lon) != n_tri:
+            raise AssertionError(f"sphere {n_lat}x{n_lon} is not {n_tri} "
+                                 f"triangles")
+        meshes.append((path, read_stl(path)))
+    (_, big), (_, small) = meshes
+    cases = []
+    for tris, m, seed, timed in ((big, 1024, 0, True), (small, 16384, 1, True),
+                                 (small[:1003], 1, 2, False),
+                                 (small[:1025], 257, 3, False)):
+        p = torch.from_numpy(winding_points(tris, m, seed)).cuda()
+        cases.append(check_winding(p, tris, seed, timed))
+    return ({"phase": "winding_kernel",
+             "ops_per_pair": WINDING_OPS_PER_PAIR, "cases": cases}, meshes)
+
+
+class WindingTap:
+    """Records the near-band batch of each winding-number call during a
+    main-path run and holds the largest one (references, not copies)."""
+
+    def __init__(self):
+        from sparsespatialsampling_torch.ops import winding
+        self._winding = winding
+        self._orig = winding.winding_number
+        self.sizes, self.largest = [], None
+
+    def __enter__(self):
+        def tapped(points, v0, v1, v2):
+            self.sizes.append(int(points.shape[0]))
+            if (self.largest is None
+                    or points.shape[0] > self.largest.shape[0]):
+                self.largest = points
+            return self._orig(points, v0, v1, v2)
+        self._winding.winding_number = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._winding.winding_number = self._orig
+
+
+def phase_stl3d(tmp: str, stl_path: str) -> tuple:
+    """Bench workload 4 (``bench.py:460-498``), not cut."""
+    from sparsespatialsampling_torch import CubeGeometry, GeometrySTL3D
+    xyz, metric, bounds = stl_cloud()
+    t0 = time.perf_counter()
+    stl = GeometrySTL3D("sphere", False, stl_path, refine=True,
+                        min_refinement_level=6)
+    t_stl = time.perf_counter() - t0
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]), stl]
+    with WindingTap() as wtap:
+        s3, _, _, t, counts, tap, _ = main_path_run(
+            "stl3d", tmp, "stl", xyz, metric, geometries,
+            sites=("grid_select",), kernels=("topk_smallest", "winding_number"),
+            uniform_levels=4, n_cells_max=40_000)
+    sizes = np.asarray(wtap.sizes)
+    if sizes.size != counts["winding_number"]:
+        raise AssertionError(f"stl3d: {sizes.size} winding calls, "
+                             f"{counts['winding_number']} launches")
+    out = {"phase": "stl3d", "n_points": int(xyz.shape[0]),
+           "n_triangles": int(stl.triangles.shape[0]),
+           "stl_build_s": t_stl, **grid_summary(s3, t),
+           "launches": counts, "launches_per_site": dict(tap.launches),
+           "sign_grid": {"n_near_vox": stl._sg["n_near_vox"],
+                         "n_vox": stl._sg["n_vox"]},
+           "near_band_points_per_call": {
+               "calls": int(sizes.size), "total": int(sizes.sum()),
+               "min": int(sizes.min()), "median": float(np.median(sizes)),
+               "max": int(sizes.max())}}
+    check_expected("stl3d", out)
+    out["kernel_at_call_sites"] = check_sites(tap)
+    out["winding_at_largest_call"] = check_winding(wtap.largest,
+                                                   stl.triangles, 4)
+    return out, counts
+
+
+def stl_points(tris: np.ndarray, n: int = 1_000_000,
+               seed: int = 0) -> np.ndarray:
+    """``n`` seeded f32 points around the sphere STL ``tris``: corner
+    nodes of the unit lattice at levels 5-12 (``lattice_points``), 5 000
+    points on the mesh (barycentric in f64, rounded to f32), each moved by
+    up to 4 ulps per axis, 5 000 within 1e-4 of the radius, and uniform
+    points in the bounding box grown by 0.05."""
+    rng = np.random.default_rng(seed)
+    lower, upper = tris.reshape(-1, 3).min(0) - 0.05, \
+        tris.reshape(-1, 3).max(0) + 0.05
+    parts = lattice_points(lower, upper, n, rng)
+    bary = rng.dirichlet([1.0, 1.0, 1.0], size=5_000)
+    on = np.einsum("nk,nkd->nd", bary,
+                   tris[rng.integers(0, tris.shape[0], 5_000)]).astype(np.float32)
+    steps = rng.integers(-4, 5, size=on.shape).astype(np.int32)
+    parts.append((on.view(np.int32)
+                  + np.where(on >= 0, steps, -steps)).view(np.float32))
+    parts.append(winding_points(tris, 5_000, seed + 1))
+    rest = n - sum(x.shape[0] for x in parts)
+    parts.append(rng.uniform(lower, upper, size=(rest, 3)).astype(np.float32))
+    return np.concatenate(parts)
+
+
+def phase_stl_cuda_vs_cpu(tmp: str, stl_path: str, tris: np.ndarray) -> dict:
+    """The 5 664-triangle sphere STL on the card against the CPU: flags of
+    both routes, then a small grid."""
+    import sparsespatialsampling_torch as tpkg
+    from sparsespatialsampling_torch.geometry import stl as tstl
+    pts = stl_points(tris)
+    rng = np.random.default_rng(1)
+    offs = np.stack(np.meshgrid(*([[0.0, 1.0]] * 3), indexing="ij"),
+                    -1).reshape(-1, 3)
+    # 25 000 points, each the first corner of a cell one level-9 step wide
+    nodes = (pts[rng.permutation(pts.shape[0])[:25_000], None, :]
+             .astype(np.float64) + offs[None] / 2 ** 9).astype(np.float32)
+    out = {"phase": "stl_cuda_vs_cpu", "n_points": int(pts.shape[0]),
+           "n_cells": int(nodes.shape[0]), "routes": {}}
+    saved = tstl._FW_MIN_TRIS
+    for route, fw_min in (("exact", saved), ("fast_winding", 4096)):
+        case = {}
+        for keep in (False, True):
+            tstl._FW_MIN_TRIS = fw_min
+            try:
+                g = tpkg.GeometrySTL3D("s", keep, stl_path)
+            finally:
+                tstl._FW_MIN_TRIS = saved
+            if (g._fw is not None) != (route == "fast_winding"):
+                raise AssertionError(f"stl_cuda_vs_cpu: {route} route not "
+                                     f"taken")
+            got = {}
+            for dev in ("cuda", "cpu"):
+                p = torch.from_numpy(pts).to(dev)
+                c = torch.from_numpy(nodes).to(dev)
+                t0 = time.perf_counter()
+                mask = g.mask_points(p)
+                flags = [g.check_cells(c, r) for r in (False, True)]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                case[f"{dev}_s_keep_inside_{keep}"] = time.perf_counter() - t0
+                got[dev] = [mask.cpu()] + [f.cpu() for f in flags]
+            same = [torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"])]
+            if not all(same):
+                raise AssertionError(
+                    f"stl_cuda_vs_cpu: {route} (keep_inside={keep}) differs "
+                    f"between the card and the CPU: mask, removal, surface "
+                    f"equal {same}")
+            case[f"inside_keep_inside_{keep}"] = int(got["cpu"][0].sum())
+        out["routes"][route] = case
+    out["flags_equal_cpu"] = True
+    xyz, metric, bounds = stl_cloud()
+    xyz, metric = xyz[:30_000], metric[:30_000]
+    keys, states = {}, {}
+    for dev in ("cuda", "cpu"):
+        stl = tpkg.GeometrySTL3D("sphere", False, stl_path, refine=True,
+                                 min_refinement_level=6, device=dev)
+        states[dev] = stl._sg["state"]
+        geometries = [tpkg.CubeGeometry("domain", True, bounds[0], bounds[1]),
+                      stl]
+        s3, _, _, t, _ = run_grid(tmp, f"stl_{dev}", xyz, metric, geometries,
+                                  device=dev, uniform_levels=3,
+                                  n_cells_max=6_000)
+        keys[dev] = grid_key(s3)
+        out[f"grid_{dev}"] = case_summary(s3, t)
+    if not np.array_equal(states["cuda"], states["cpu"]):
+        raise AssertionError("stl_cuda_vs_cpu: the sign grids built on the "
+                             "card and on the CPU differ")
+    out["grid"] = compare_grids("STL cuda and cpu", keys["cuda"], keys["cpu"])
+    return out
+
+
+def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
+    """The ``kernels`` line's entry of ``winding_number``: the top-level
+    times are at [1024, 51552], the ``stl3d`` mesh at the JAX package's
+    near-band batch; ``cases`` holds every timed shape, the largest
+    near-band batch of the ``stl3d`` run included."""
+    checks = cases + [stl["winding_at_largest_call"]]
+    timed = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "name": "winding_number", "route": "cuda",
+        "source": "sparsespatialsampling_torch/csrc/winding_number.cu",
+        "replaces": "sparsespatialsampling_tpu/geometry/stl.py:129",
+        "replaces_what": "_omega and _winding_number (:312), an XLA "
+                         "program, not a Pallas kernel",
+        "launches": counts_stl["winding_number"],
+        "launches_stl3d": counts_stl["winding_number"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "flags_differ_far": sum(c["flags_differ_far"] for c in checks),
+        "flags_differ_near": sum(c["flags_differ_near"] for c in checks),
+        "batch_bitwise": all(c["batch_bitwise"] for c in checks),
+        "ops_per_pair": WINDING_OPS_PER_PAIR,
+        **{key: cases[0][key] for key in timed},
+        "cases": {("stl3d_largest_call" if c is checks[-1] else
+                   f"{c['shape'][0]}x{c['shape'][1]}"):
+                  {key: c[key] for key in timed}
+                  for c in checks if "ms" in c}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs the "
@@ -1057,6 +1435,11 @@ def main() -> int:
         mdl, counts_mdl = phase_mdl2d(tmp)
         emit(mdl)
         emit(phase_geometry_cuda_vs_cpu(tmp))
+        wk, ((big_path, _), (small_path, small)) = phase_winding_kernel(tmp)
+        emit(wk)
+        stl, counts_stl = phase_stl3d(tmp, big_path)
+        emit(stl)
+        emit(phase_stl_cuda_vs_cpu(tmp, small_path, small))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1088,7 +1471,8 @@ def main() -> int:
         **{key: sites3d["full_scan_tile"][key] for key in timed},
         "sites": {site: {key: c[key] for key in timed + ("launches",)}
                   for site, c in sites.items()},
-        "epoch_shape": {key: epoch[key] for key in timed}}]})
+        "epoch_shape": {key: epoch[key] for key in timed}},
+        winding_entry(wk["cases"], stl, counts_stl)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

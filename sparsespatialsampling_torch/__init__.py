@@ -4,11 +4,13 @@ sampling) for NVIDIA Hopper.
 Metric-driven adaptive quadtree/octree grid generation for CFD data
 reduction, snapshot interpolation and HDF5/XDMF export, with the public API
 and file schema of the JAX package it is ported from (the reference,
-kept beside it in the repository): every closed-form geometry, the bbox
-pre-select route for polygons and the 2:1 balance (``max_delta_level``).
-The numerics run on a torch device (``device=None`` means the card); the
-grid kNN selects through a hand-written CUDA kernel
-(``csrc/topk_smallest.cu``).  This package imports no JAX.
+kept beside it in the repository): every closed-form geometry, STL
+surfaces (``GeometrySTL3D``), the bbox pre-select route and the 2:1 balance
+(``max_delta_level``).  The numerics run on a torch device (``device=None``
+means the card); the grid kNN selects through a hand-written CUDA kernel
+(``csrc/topk_smallest.cu``), and the STL inside test sums its near-band
+winding numbers through another (``csrc/winding_number.cu``).  This
+package imports no JAX.
 """
 from .version import __version__
 from .sparse_spatial_sampling import SparseSpatialSampling, load_s_cube
@@ -17,7 +19,7 @@ from .io import Dataloader, Datawriter, XDMFWriter
 from .geometry import (GeometryObject, CubeGeometry, SphereGeometry,
                        CylinderGeometry3D, GeometryCoordinates2D,
                        TriangleGeometry, TetrahedronGeometry3D,
-                       PrismGeometry3D, PyramidGeometry3D)
+                       PrismGeometry3D, PyramidGeometry3D, GeometrySTL3D)
 
 __all__ = [
     "__version__",
@@ -27,4 +29,5 @@ __all__ = [
     "GeometryObject", "CubeGeometry", "SphereGeometry",
     "CylinderGeometry3D", "GeometryCoordinates2D", "TriangleGeometry",
     "TetrahedronGeometry3D", "PrismGeometry3D", "PyramidGeometry3D",
+    "GeometrySTL3D",
 ]

@@ -25,12 +25,14 @@ lattice centres) take the f64 host path.
 
 Geometry validity outside the epochs (the uniform sweeps' removal and the
 geometry refinement) is tested on corner nodes built in f32 on the device,
-except where ``pre_select`` is on and a geometry of a pre-select type
-(``coord_2D``) takes part: then the nodes are built in f64 on the host, a
-bounding-box test settles the cells it can, and the predicate runs on the
-f32 cast of the rest — the JAX package's ``BatchedValidity`` route, whose
-nodes can differ from the device-built ones by an ulp.  The epochs test
-every geometry in full on device-built nodes in either case.
+except where a bbox-routed geometry takes part: one of a pre-select type
+(``STL``, ``coord_2D``) while ``pre_select`` is on, or one whose lookup
+tables exceed ``_FUSED_GEO_BYTES``.  Then the nodes are built in f64 on
+the host, a bounding-box test settles the cells it can, and the predicate
+runs on the f32 cast of the rest — the JAX package's ``BatchedValidity``
+route, whose nodes can differ from the device-built ones by an ulp.  The
+epochs test every geometry in full on device-built nodes, except those
+above the table budget, which they test by that host route.
 
 With ``max_delta_level`` every refinement keeps the 2:1 balance: a cell is
 split only together with each coarser leaf that touches it by a face, an
@@ -80,9 +82,14 @@ _RESCUE_ROWS = 1024
 # cells per host ring epoch (the JAX package's host escalation)
 _RETRY_RING_CELLS = 256
 # geometry types whose validity outside the epochs takes the bbox
-# pre-select route when ``pre_select`` is on (the JAX package also lists
-# "STL", which the port does not have yet)
+# pre-select route when ``pre_select`` is on
 _PRE_SELECT_TYPES = ("STL", "coord_2D")
+# lookup-table bytes above which a geometry takes the bbox route
+# everywhere, the epochs included, whatever ``pre_select`` says (the JAX
+# package's budget, ``engine/tree.py:368``; there it keeps large tables
+# out of compiled programs; here it keeps the JAX package's node sets,
+# which decide flags at ulp distance)
+_FUSED_GEO_BYTES = 16 * 2 ** 20
 
 
 def _cell_size(width, level):
@@ -91,6 +98,11 @@ def _cell_size(width, level):
     on, and the division by a power of two rounds nothing)."""
     pow2 = ((level.to(torch.int32) + 127) << 23).view(torch.float32)
     return width / pow2
+
+
+def _huge(g) -> bool:
+    """Whether geometry ``g``'s lookup tables exceed ``_FUSED_GEO_BYTES``."""
+    return g.device_table_bytes > _FUSED_GEO_BYTES
 
 
 def _corner_nodes_f32(coords, level, lo, width, offsets):
@@ -369,7 +381,14 @@ class SamplingTree:
         n_children = 1 + 2 ** self._n_dimensions
         coords, level = self._cells_on_device(idx)
         queries = self._query_centers(coords, level)
-        invalid = self._invalid_on_device(coords, level, self._geometry)
+        invalid = self._invalid_on_device(
+            coords, level, [g for g in self._geometry if not _huge(g)])
+        huge = [g for g in self._geometry if _huge(g)]
+        if huge:
+            # the JAX package's host-merged validity (its
+            # ``_host_geo_validity``): host-built nodes behind the box
+            invalid |= torch.from_numpy(self._cell_flags_host(
+                idx, huge, False)).to(self.device)
         st = self._epoch_stats
         nq = queries.shape[0]
         st["queries"] += nq
@@ -524,10 +543,11 @@ class SamplingTree:
         self._gain[dead] = 0.0
 
     def _pre_selected(self, g) -> bool:
-        """Whether geometry ``g`` takes the bbox pre-select route outside
-        the epochs (the JAX package's "expensive" geometries)."""
-        return (self._pre_select and g.type in _PRE_SELECT_TYPES
-                and g.bounding_box() is not None)
+        """Whether geometry ``g`` takes the bbox route outside the epochs
+        (the JAX package's "expensive" geometries): a pre-select type with
+        ``pre_select`` on, or tables above the budget."""
+        return ((self._pre_select and g.type in _PRE_SELECT_TYPES
+                 or _huge(g)) and g.bounding_box() is not None)
 
     def _cell_flags(self, idx: np.ndarray, geometries,
                     refine_geometry: bool) -> np.ndarray:
@@ -590,13 +610,12 @@ class SamplingTree:
     def _geo_refine_flags(self, g, idx: np.ndarray):
         """``(invalid, surface)`` flags of cells ``idx`` w.r.t. geometry
         ``g``: one set of device-built corner nodes serves both tests, as
-        in the JAX package's one-call route; a pre-select geometry takes
-        its two-call route instead, which tests the surface of the valid
-        cells only (a removed cell is never a surface cell).  The JAX
+        in the JAX package's one-call route; a bbox-routed geometry
+        (:meth:`_pre_selected`: pre-select, or tables above the budget)
+        takes its two-call route instead, which tests the surface of the
+        valid cells only (a removed cell is never a surface cell).  The JAX
         package also takes the two-call route above level 22, where it
-        gives these flags from the same device-built nodes, and for
-        geometries whose device tables are too large to fuse, which only
-        STL has (not ported)."""
+        gives these flags from the same device-built nodes."""
         if self._pre_selected(g):
             invalid = self._cell_flags(idx, [g], False)
             surface = np.zeros_like(invalid)

@@ -126,6 +126,13 @@ class GeometryObject(ABC):
         the geometry, or None where the geometry offers none."""
         return None
 
+    @property
+    def device_table_bytes(self) -> int:
+        """Bytes of the lookup tables a query reads: none for a closed-form
+        geometry.  The engine routes a geometry above its budget as the
+        JAX package does (``engine/tree._FUSED_GEO_BYTES``)."""
+        return 0
+
     def _check_common_arguments(self) -> None:
         if self._name == "":
             raise ValueError("Every geometry object needs a non-empty name.")

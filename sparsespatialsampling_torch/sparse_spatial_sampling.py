@@ -68,10 +68,10 @@ class SparseSpatialSampling:
         :param relTol: min improvement between consecutive iterations
         :param reach_at_least: fraction of the target to reach before the
             relTol stopping criterion arms
-        :param pre_select_cells: test polygon (``coord_2D``) geometries
-            outside the refinement epochs on host-built f64 corner nodes,
-            settling the cells their bounding box decides first, as the JAX
-            package does
+        :param pre_select_cells: test STL and polygon (``coord_2D``)
+            geometries outside the refinement epochs on host-built f64
+            corner nodes, settling the cells their bounding box decides
+            first, as the JAX package does
         :param device: torch device of the numerics; None means ``cuda``
             (raises when there is no card)
         """
