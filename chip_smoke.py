@@ -14,7 +14,9 @@ the final line.  The last three lines are the kernel summary, the card's
 Phases:
 
 - ``env``: torch / CUDA versions and the card;
-- ``build``: compiles every ``csrc/*.cu`` (one ``nvcc`` each, in parallel);
+- ``build``: compiles every ``csrc/*.cu`` (one ``nvcc`` each, in parallel)
+  and counts the f64 instructions of each kernel in its SASS
+  (``cuobjdump -sass``);
 - ``kernel``: ``topk_smallest`` against its plain version at the 3D epoch
   shape [36864, 864] k=26, a 2D shape [20480, 576] k=8, the merge width of
   the full scan [1024, 1054] k=34 (in-row ties, whole-row ties and a row
@@ -73,13 +75,17 @@ Phases:
   card and on the CPU, whose grids must be identical;
 - ``winding_kernel``: ``winding_number`` against its plain version on the
   card at [1024, 51552] (the ``stl3d`` mesh, a near-band batch of the JAX
-  package's ``_MASK_CHUNK``), at [16384, 5664] and at two edge shapes
-  ([1, 1003], [257, 1025]); points uniform, within 1e-4 of the sphere's
-  radius, and on triangle vertices and edges.  ``|Δw| ≤ 1e-4``, flags
-  ``w > 0.5`` equal at every point farther than 1e-5 from the mesh, and a
-  shuffled batch and a prefix batch give each point bitwise the same
-  ``w``; device times of the kernel and the plain version beside the
-  operation bound;
+  package's ``_MASK_CHUNK``), [15, 51552] and [481, 51552] (``stl3d``'s
+  median and largest near-band calls), [16384, 5664], [1024, 258480] (the
+  largest lat-lon sphere on the exact route) and at three edge shapes
+  ([1, 1003], [257, 1025], [999, 40001]: spans and point tiles left partly
+  empty); points uniform, within 1e-4 of the sphere's radius, and on
+  triangle vertices and edges.  ``|Δw| ≤ 1e-4``, flags ``w > 0.5`` equal
+  at every point farther than 1e-5 from the mesh, and a shuffled batch and
+  a prefix batch give each point bitwise the same ``w``; device times of
+  the kernel and the plain version beside the operation bound; then the
+  wrapper's slices (a batch over its scratch bound, 64 points a launch)
+  bitwise the whole batch;
 - ``stl3d``: bench workload 4 (``bench.py:460-498``), not cut: 200 000
   points (seed 2) around the 51 552-triangle sphere STL refined to level 6,
   ``uniform_levels=4``, 40 000 cells, no export; it prints the sign grid's
@@ -107,6 +113,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -136,6 +143,37 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# SASS mnemonics of f64 work: the f64 pipe's operations, the f64 reciprocal
+# seed of a division, and conversions to or from f64
+SASS_F64 = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX", "MUFU.RCP64H",
+            "F2F.F64.F32", "F2F.F32.F64")
+
+
+def sass_counts() -> dict:
+    """Per kernel function of each built ``csrc/*.cu`` library, its
+    instructions in the SASS (``cuobjdump -sass``, NOPs left out) and the
+    f64 ones among them by mnemonic.  Static counts: each instruction of
+    the code once, however often it runs."""
+    from sparsespatialsampling_torch import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = {}
+    for src in sorted(_build.SOURCE_DIR.glob("*.cu")):
+        sass = subprocess.run([tool, "-sass", str(_build._library_path(src))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        funcs = {}
+        for chunk in sass.split("Function : ")[1:]:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]*)", chunk)
+            ops = [op for op in ops if op != "NOP"]
+            f64 = {k: sum(op.startswith(k) for op in ops) for k in SASS_F64}
+            funcs[chunk.split()[0]] = {
+                "instructions": len(ops),
+                "f64": {k: v for k, v in f64.items() if v}}
+        out[src.stem] = funcs
+    return out
 
 
 def cuda_ms(fn, x: torch.Tensor, min_reps: int = 10,
@@ -1197,26 +1235,64 @@ def check_winding(p: torch.Tensor, tris: np.ndarray, seed: int,
     return res
 
 
-def phase_winding_kernel(tmp: str) -> tuple:
-    """The winding kernel against its plain version.  Returns the phase's
-    line and the 51 552- and 5 664-triangle spheres."""
+def winding_meshes(tmp: str) -> list:
+    """``(path, triangles)`` of the 51 552-, 5 664- and 258 480-triangle
+    spheres, written to ``tmp``; the last is the largest lat-lon sphere
+    under ``_FW_MIN_TRIS``, so the exact route takes it."""
     from sparsespatialsampling_torch.geometry.stl import read_stl
     meshes = []
-    for n_lat, n_lon, n_tri in ((180, 144, 51_552), (60, 48, 5_664)):
+    for n_lat, n_lon, n_tri in ((180, 144, 51_552), (60, 48, 5_664),
+                                (360, 360, 258_480)):
         path = os.path.join(tmp, f"sphere_{n_tri}.stl")
         if sphere_stl(path, n_lat, n_lon) != n_tri:
             raise AssertionError(f"sphere {n_lat}x{n_lon} is not {n_tri} "
                                  f"triangles")
         meshes.append((path, read_stl(path)))
-    (_, big), (_, small) = meshes
+    return meshes
+
+
+def winding_cases(meshes: list) -> tuple:
+    """``(triangles, points, seed, timed)`` of the ``winding_kernel``
+    cases: the ``stl3d`` mesh at the JAX package's near-band batch, at
+    ``stl3d``'s median and largest near-band calls, a large batch on the
+    small sphere, a large mesh, and edge shapes (one point, and spans and
+    point tiles left partly empty)."""
+    (_, big), (_, small), (_, huge) = meshes
+    return ((big, 1024, 0, True), (small, 16384, 1, True),
+            (small[:1003], 1, 2, False), (small[:1025], 257, 3, False),
+            (big, 15, 4, True), (big, 481, 5, True), (huge, 1024, 6, True),
+            (big[:40001], 999, 7, False))
+
+
+def phase_winding_kernel(tmp: str) -> tuple:
+    """The winding kernel against its plain version.  Returns the phase's
+    line and the meshes of :func:`winding_meshes`."""
+    from sparsespatialsampling_torch.ops import winding
+    meshes = winding_meshes(tmp)
     cases = []
-    for tris, m, seed, timed in ((big, 1024, 0, True), (small, 16384, 1, True),
-                                 (small[:1003], 1, 2, False),
-                                 (small[:1025], 257, 3, False)):
+    for tris, m, seed, timed in winding_cases(meshes):
         p = torch.from_numpy(winding_points(tris, m, seed)).cuda()
         cases.append(check_winding(p, tris, seed, timed))
+    # the wrapper's slices of a batch whose partial sums exceed its scratch
+    # bound: the last case's points, 64 a launch, bitwise the whole batch
+    v = [torch.from_numpy(np.ascontiguousarray(tris[:, i], dtype=np.float32)
+                          ).cuda() for i in range(3)]
+    whole = winding.winding_number(p, *v)
+    spans = winding._kernel_entry()[1](tris.shape[0])
+    saved, before = winding._PART_BYTES, winding.launches
+    winding._PART_BYTES = 8 * spans * 64
+    try:
+        sliced = winding.winding_number(p, *v)
+    finally:
+        winding._PART_BYTES = saved
+    slices = {"shape": [m, tris.shape[0]], "points_a_launch": 64,
+              "launches": winding.launches - before,
+              "bitwise": torch.equal(sliced, whole)}
+    if slices["launches"] != -(-m // 64) or not slices["bitwise"]:
+        raise AssertionError(f"winding_number's slices differ: {slices}")
     return ({"phase": "winding_kernel",
-             "ops_per_pair": WINDING_OPS_PER_PAIR, "cases": cases}, meshes)
+             "ops_per_pair": WINDING_OPS_PER_PAIR, "cases": cases,
+             "slices": slices}, meshes)
 
 
 class WindingTap:
@@ -1413,7 +1489,8 @@ def main() -> int:
           "built": sorted(logs),
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
-                    for n, log in logs.items()}})
+                    for n, log in logs.items()},
+          "sass": sass_counts()})
 
     tmp = tempfile.mkdtemp(prefix="s3_smoke_")
     try:
@@ -1435,7 +1512,8 @@ def main() -> int:
         mdl, counts_mdl = phase_mdl2d(tmp)
         emit(mdl)
         emit(phase_geometry_cuda_vs_cpu(tmp))
-        wk, ((big_path, _), (small_path, small)) = phase_winding_kernel(tmp)
+        wk, ((big_path, _), (small_path, small), _) = \
+            phase_winding_kernel(tmp)
         emit(wk)
         stl, counts_stl = phase_stl3d(tmp, big_path)
         emit(stl)

@@ -19,7 +19,7 @@ import torch
 from ._device import resolve_device
 from .io.const import GRID, CONST, FACES, CENTERS, VERTICES, DATA
 from .io.data import Datawriter
-from .ops.interpolate import interpolate_data, interpolate_numpy
+from .ops.interpolate import CHUNK_SIZE, interpolate_data, interpolate_numpy
 from .ops.knn import KNNIndex
 
 logger = logging.getLogger(__name__)
@@ -113,7 +113,7 @@ class ExportData:
                         "t_h5": 0.0, "n_fallback": 0}
 
     def export(self, coordinates, data, field_name: str,
-               n_snapshots_total: int = None) -> None:
+               n_snapshots_total: int = None, chunk_size: int = None) -> None:
         """Interpolate CFD data onto the S³ grid (:meth:`interpolate`) and
         write it to HDF5 (and XDMF once all snapshots of the field are
         written).
@@ -124,6 +124,9 @@ class ExportData:
         :param field_name: name of the exported field (e.g. ``'p'``)
         :param n_snapshots_total: total number of snapshots to export across
             all batches; if None, ``data`` is assumed complete
+        :param chunk_size: cells interpolated per device call; None keeps
+            the default of :func:`~.ops.interpolate.interpolate_data`.  The
+            result does not depend on it.
         """
         if self._write_times is None:
             raise ValueError(
@@ -133,7 +136,8 @@ class ExportData:
         self._field_name = field_name
         if self._snapshot_counter == 0:
             logger.info(f"Interpolating field {field_name} onto the S3 grid.")
-        n_batch = self.interpolate(coordinates, data).shape[-1]
+        n_batch = self.interpolate(coordinates, data,
+                                   chunk_size=chunk_size).shape[-1]
         if self._snapshot_counter == 0:
             self._n_snapshots_total = (n_snapshots_total
                                        if n_snapshots_total is not None
@@ -185,7 +189,8 @@ class ExportData:
             self.timings["n_fallback"] += self._knn.last_fallback
         self._initialized_weights = True
 
-    def interpolate(self, coordinates, data) -> np.ndarray:
+    def interpolate(self, coordinates, data,
+                    chunk_size: int = None) -> np.ndarray:
         """Interpolate CFD data onto the cell centres (and vertices, if
         asked for) without writing anything: the first half of
         :meth:`export`.  Builds the weight cache on the first call and
@@ -194,8 +199,14 @@ class ExportData:
 
         :param coordinates: coordinates of the original CFD grid ``[N, d]``
         :param data: field data ``[N, C, S]`` (or ``[N, S]`` for a scalar)
+        :param chunk_size: cells interpolated per device call (as in
+            :meth:`export`)
         :return: the field at the cell centres, ``[M, C, S]`` float32
         """
+        chunk_size = CHUNK_SIZE if chunk_size is None else int(chunk_size)
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be at least 1, got "
+                             f"{chunk_size}")
         data = np.asarray(data)
         if data.ndim < 2:
             raise ValueError(
@@ -223,8 +234,8 @@ class ExportData:
                                          dtype=torch.float32,
                                          device=self.device)
                 self._metric = interpolate_data(
-                    self._w_centers, self._idx_centers,
-                    metric)[:, 0, 0].cpu().numpy()
+                    self._w_centers, self._idx_centers, metric,
+                    chunk_size)[:, 0, 0].cpu().numpy()
             else:
                 # float64 on the host, as the JAX package's host cache does
                 w = self._w_centers.numpy()
@@ -235,10 +246,12 @@ class ExportData:
 
         t0 = time()
         self._interpolated_fields.centers = interpolate_numpy(
-            self._w_centers, self._idx_centers, data, self.device)
+            self._w_centers, self._idx_centers, data, self.device,
+            chunk_size)
         if self._interpolate_at_vertices:
             self._interpolated_fields.vertices = interpolate_numpy(
-                self._w_vertices, self._idx_vertices, data, self.device)
+                self._w_vertices, self._idx_vertices, data, self.device,
+                chunk_size)
         self.timings["t_kernel"] += time() - t0
         return self._interpolated_fields.centers
 

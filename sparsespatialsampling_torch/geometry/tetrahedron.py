@@ -54,6 +54,11 @@ class TetrahedronGeometry3D(GeometryObject):
             outside = beyond if outside is None else outside | beyond
         return ~outside
 
+    def check_tetrahedron(self, vertices):
+        """:meth:`mask_points` of ``vertices``, under the JAX package's name
+        for the inside test that its pyramid geometry reuses."""
+        return self.mask_points(vertices)
+
     def bounding_box(self):
         return self._corners.min(axis=0), self._corners.max(axis=0)
 

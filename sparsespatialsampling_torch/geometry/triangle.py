@@ -46,6 +46,11 @@ class TriangleGeometry(GeometryObject):
         pos = (sides[0] > 0) | (sides[1] > 0) | (sides[2] > 0)
         return ~(neg & pos)
 
+    def check_triangle(self, vertices):
+        """:meth:`mask_points` of ``vertices``, under the JAX package's name
+        for the inside test that its prism geometry reuses."""
+        return self.mask_points(vertices)
+
     def bounding_box(self):
         return self._corners.min(axis=0), self._corners.max(axis=0)
 

@@ -9,9 +9,12 @@ package's CSR host contraction (``build_host_operator``).  One gather of
 import numpy as np
 import torch
 
+# output rows a contraction call computes at a time by default
+CHUNK_SIZE = 65536
+
 
 def interpolate_data(weights: torch.Tensor, idx: torch.Tensor,
-                     data: torch.Tensor, chunk_size: int = 65536):
+                     data: torch.Tensor, chunk_size: int = CHUNK_SIZE):
     """``weights [M, k]`` f32 and ``idx [M, k]`` (rows of ``data``) on the
     device, ``data [N, C, S]`` f32 on the same device → ``[M, C, S]`` f32
     tensor, ``chunk_size`` output rows at a time."""
@@ -28,9 +31,10 @@ def interpolate_data(weights: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def interpolate_numpy(weights, idx, data, device) -> np.ndarray:
+def interpolate_numpy(weights, idx, data, device,
+                      chunk_size: int = CHUNK_SIZE) -> np.ndarray:
     """:func:`interpolate_data` on host arrays: uploads ``data`` as f32 to
     ``device`` and returns the result as numpy."""
     data_t = torch.from_numpy(np.ascontiguousarray(
         data, dtype=np.float32)).to(device)
-    return interpolate_data(weights, idx, data_t).cpu().numpy()
+    return interpolate_data(weights, idx, data_t, chunk_size).cpu().numpy()

@@ -38,6 +38,9 @@ _KERNEL = "winding_number"
 # (point, triangle) pairs the plain version evaluates at once: bounds each
 # of its [rows, triangles] f32 temporaries to 8 MB
 _PAIRS_PER_CHUNK = 1 << 21
+# bytes of the kernel's f64 partial sums a launch may use: 16,611 points
+# at 258,480 triangles, 83,055 at 51,552
+_PART_BYTES = 1 << 27
 
 
 def half_angles(p, w0, w1, w2) -> torch.Tensor:
@@ -99,18 +102,29 @@ def _kernel_entry():
 
 
 def _launch(points, v0, v1, v2) -> torch.Tensor:
+    """The kernel over ``points`` in slices whose f64 partial sums (one per
+    256 triangles and point) fit in ``_PART_BYTES``; a point's ``w`` does
+    not depend on its slice.  Counts each launch."""
+    global launches
     fn, splits = _kernel_entry()
     m, t = points.shape[0], v0.shape[0]
     dev = points.device
-    part = torch.empty((splits(t), m), dtype=torch.float64, device=dev)
+    spans = splits(t)
+    step = max(1, min(m, _PART_BYTES // (8 * spans)))
+    part = torch.empty(spans * step, dtype=torch.float64, device=dev)
     w = torch.empty(m, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(points.data_ptr(), v0.data_ptr(), v1.data_ptr(),
-                v2.data_ptr(), m, t, part.data_ptr(), w.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"winding_number kernel launch failed: CUDA error "
-                           f"{rc} at points [{m}, 3], triangles [{t}, 3]")
+        for lo in range(0, m, step):
+            n = min(step, m - lo)
+            rc = fn(points[lo:].data_ptr(), v0.data_ptr(), v1.data_ptr(),
+                    v2.data_ptr(), n, t, part.data_ptr(), w[lo:].data_ptr(),
+                    stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"winding_number kernel launch failed: CUDA error {rc} "
+                    f"at points [{n}, 3], triangles [{t}, 3]")
+            launches += 1
     return w
 
 
@@ -121,7 +135,6 @@ def winding_number(points: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
 
     A CPU tensor runs :func:`winding_number_plain`; a CUDA tensor launches
     the hand-written kernel.  Any other device, dtype or layout raises."""
-    global launches
     tensors = (points, v0, v1, v2)
     if any(x.dim() != 2 or x.shape[1] != 3 for x in tensors):
         raise ValueError(f"winding_number expects [M, 3] points and [T, 3] "
@@ -150,6 +163,4 @@ def winding_number(points: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
                          f"exceed the int32 count")
     if m == 0:
         return torch.empty(0, dtype=torch.float32, device=points.device)
-    w = _launch(points, v0, v1, v2)
-    launches += 1
-    return w
+    return _launch(points, v0, v1, v2)

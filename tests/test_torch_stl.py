@@ -424,12 +424,20 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(pair):
+@pytest.mark.parametrize("n_points,n_tris", [
+    (None, None),   # the sign-grid point set over the whole sphere
+    (1, None),
+    (15, None),     # the median near-band call of bench workload 4
+    (37, 1003),     # a span and a point tile left partly empty
+])
+def test_kernel_matches_plain_on_card(pair, n_points, n_tris):
+    """The kernel equals its plain version to 1e-6, and a point's ``w`` is
+    bitwise the same in a shuffled batch and in a prefix batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    tris = pair[0].triangles
+    tris = pair[0].triangles[:n_tris]
     v = [torch.from_numpy(_f32(tris[:, i])).cuda() for i in range(3)]
-    pts = torch.from_numpy(_sg_points()).cuda()
+    pts = torch.from_numpy(_sg_points()[:n_points]).cuda()
     before = winding.launches
     got = winding.winding_number(pts, *v)
     want = winding.winding_number_plain(pts, *v)
@@ -438,6 +446,25 @@ def test_kernel_matches_plain_on_card(pair):
     assert float((got - want).abs().max()) <= 1e-6
     perm = torch.randperm(pts.shape[0], device="cuda")
     assert torch.equal(winding.winding_number(pts[perm], *v), got[perm])
+    head = max(1, pts.shape[0] // 3)
+    assert torch.equal(winding.winding_number(pts[:head], *v), got[:head])
+
+
+@pytest.mark.cuda
+def test_kernel_slices_give_the_whole_batch_on_card(pair, monkeypatch):
+    """A batch whose partial sums exceed ``_PART_BYTES`` runs in slices of
+    points, one launch each, and gives the unsliced ``w`` bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tris = pair[0].triangles
+    v = [torch.from_numpy(_f32(tris[:, i])).cuda() for i in range(3)]
+    pts = torch.from_numpy(_sg_points()[:100]).cuda()
+    whole = winding.winding_number(pts, *v)
+    spans = -(-tris.shape[0] // 256)
+    monkeypatch.setattr(winding, "_PART_BYTES", 8 * spans * 7)
+    before = winding.launches
+    assert torch.equal(winding.winding_number(pts, *v), whole)
+    assert winding.launches == before + 15
 
 
 # --------------------------------------------------------------------------- #
