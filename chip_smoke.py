@@ -4,8 +4,9 @@
 
 Builds the hand-written CUDA kernels of ``sparsespatialsampling_torch`` from
 the sources in this checkout, holds each against its plain PyTorch version
-on the card, drives the port's main path (grid generation + export) through
-its public entry points, and checks what comes out.  Each phase prints one
+on the card, drives the port's main path (grid generation + export, then
+the analysis of bench workloads 1 and 2) through its public entry points,
+and checks what comes out.  Each phase prints one
 JSON line; a failing phase raises, and the script exits non-zero without
 the final line.  The last three lines are the kernel summary, the card's
 ``nvidia-smi`` name and power limit, and
@@ -53,19 +54,41 @@ Phases:
 - ``large_k``: ``KNNIndex.query(q, 300)`` on a 40 000-point cloud on the
   card against the CPU, bitwise, through the full scan's stable-sort
   selections (k + 8 is above the kernel's queue);
-- ``oat2d``: the synthetic OAT15 airfoil cloud (245 000 points, seed 0)
-  around a 240-vertex polygon obstacle refined at its surface, 25 000
-  cells, six uniform levels and ``pre_select_cells=True`` (the polygon
-  outside the epochs on host-built nodes behind its bounding box): 27 084
-  cells after 33 iterations;
-- ``cylinder3d``: the ``grid3d`` cloud around a ``CylinderGeometry3D``
-  obstacle refined to level 7, 150 000 cells, no export: 151 370 cells
-  after 43 iterations;
+- ``matmul_precision``: TF32 is off for f32 matmuls (PyTorch's default,
+  which the analysis layer relies on);
+- ``oat2d``: bench workload 1 end to end: the synthetic OAT15 airfoil
+  cloud (245 000 points, seed 0) around a 240-vertex polygon obstacle
+  refined at its surface, 25 000 cells, six uniform levels and
+  ``pre_select_cells=True`` (the polygon outside the epochs on host-built
+  nodes behind its bounding box): 27 084 cells after 33 iterations; then
+  the bench's 50 snapshots interpolated (inside the counted main path),
+  ``compute_svd(rank=20)`` and ``compute_dmd(rank=10)`` on the card, twice
+  each: ``s`` within 1e-5·s[0] of a float64 host SVD of the same weighted,
+  mean-free matrix, each of the first five modes whose gap exceeds
+  1e-3·s[0] at ``|cos| ≥ 1 - 1e-4`` with the reference's, the DMD
+  eigenvalues to 1e-4 of the port's CPU run; walls of the interpolation,
+  the SVD (split into the f64 Gram, the host ``eigh`` and the mode
+  product) and the DMD.  Without h5py ``write_svd_s_cube_to_file`` is not
+  run here (``tests/test_torch_analysis.py`` holds it on the CPU);
+- ``cylinder3d``: bench workload 2 end to end: the ``grid3d`` cloud
+  around a ``CylinderGeometry3D`` obstacle refined to level 7, 150 000
+  cells: 151 370 cells after 43 iterations; then the analysis of
+  ``oat2d`` on [151 370, 50];
 - ``mdl2d``: the ``grid2d_metric`` cloud's clean wake with
   ``max_delta_level=True``, ``min_metric=0.5`` and the obstacle refined
   to level 12 (the tutorial-3 configuration at 10x its points): 28 406
   cells after 34 iterations, and no two leaves that share a face, an edge
   or a corner more than one level apart;
+- ``svd_routes``: a seeded [600 000, 50] matrix on the card with four
+  planted modes over 1e-3 noise through ``compute_svd(rank=None)``, which
+  must take ``randomized_svd`` and the sketched rank; the top four values
+  to rtol 1e-2 of the planted spectrum and of ``economy_svd``, subspace
+  cosines ≥ 0.999; ``randomized_svd(rank=20)`` on the card against the
+  CPU's (the same sketch), ``s`` to rtol 1e-4;
+- ``c2d_reltol``: bench workload 3 at its 25 000 points (the tutorial-1
+  field calibrated to stall, ``min_metric=0.75``, the circle refined to
+  level 9; the full scan answers every query): 10 415 cells after 135
+  iterations, stopped on the relTol rule below 0.75;
 - ``geometry_cuda_vs_cpu``: ``mask_points`` and ``check_cells`` (both
   modes) of every closed-form geometry class, in 2D and 3D where it
   exists and in both polarities, on 1 000 000 seeded points (f32 lattice
@@ -308,7 +331,8 @@ MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
 # exact route answers each query
 EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67),
             "oat2d": (27_084, 33), "cylinder3d": (151_370, 43),
-            "mdl2d": (28_406, 34), "stl3d": (40_202, 29)}
+            "mdl2d": (28_406, 34), "stl3d": (40_202, 29),
+            "c2d_reltol": (10_415, 135)}
 
 
 def site_of(frame) -> str:
@@ -399,6 +423,29 @@ def channel_wake_2d(n_points: int = 250_000, seed: int = 3):
                + 0.4 * np.cos(12.0 * (x - 0.25))
                * np.exp(-((y - 0.2) ** 2) / 0.02)))
     return xy, (np.abs(wake) + 0.02).astype(np.float64), bounds
+
+
+def calibrated_cylinder2d(n_points: int = 25_000, seed: int = 3):
+    """Bench workload 3's field (``bench.py:341-388``, ``calibrated=True``)
+    through the port's Morton code: the clean wake of
+    :func:`channel_wake_2d` plus a ± component on Morton-adjacent point
+    pairs, scaled so the captured metric levels off at about 0.565 and
+    ``min_metric=0.75`` stops on the relTol rule."""
+    from sparsespatialsampling_torch.ops import morton
+    xy, metric, bounds = channel_wake_2d(n_points, seed)
+    lo, ext = xy.min(0), xy.max(0) - xy.min(0)
+    depth = morton.MAX_DEPTH[2]
+    grid = np.clip(((xy - lo) / ext * ((1 << depth) - 1))
+                   .astype(np.uint64), 0, (1 << depth) - 1)
+    order = np.argsort(morton.encode(grid), kind="stable")
+    nrng = np.random.default_rng(42)
+    n = len(xy)
+    a = np.repeat(np.abs(nrng.standard_normal(n // 2 + 1)), 2)[:n]
+    sgn = np.tile([1.0, -1.0], n // 2 + 1)[:n]
+    pm = np.empty(n)
+    pm[order] = a * sgn
+    b = 1.40 * np.sqrt((metric ** 2).sum() / (pm ** 2).sum())
+    return xy, np.maximum(metric + b * pm, 0.004), bounds
 
 
 def airfoil_polygon(n: int = 240) -> np.ndarray:
@@ -904,29 +951,32 @@ def phase_large_k() -> dict:
 
 
 def phase_oat2d(tmp: str) -> tuple:
-    """Bench workload 1 (``bench.py:275-288``): the OAT15 configuration
-    with the bbox pre-select route."""
+    """Bench workload 1 (``bench.py:275-288``, ``:816-837``) end to end:
+    the OAT15 configuration with the bbox pre-select route, 50 snapshots
+    interpolated, then the rank-20 weighted SVD and a DMD."""
     from sparsespatialsampling_torch import (CubeGeometry,
                                              GeometryCoordinates2D)
     xy, metric, poly = synthetic_oat15()
     geometries = [CubeGeometry("domain", True, [-0.5, -0.5], [1.5, 0.5]),
                   GeometryCoordinates2D("airfoil", False, poly,
                                         refine=True)]
-    s3, _, _, t, counts, tap, _ = main_path_run(
+    s3, _, field, t, counts, tap, _ = main_path_run(
         "oat2d", tmp, "oat", xy, metric, geometries,
-        sites=("grid_select", RING), uniform_levels=6, n_cells_max=25_000,
-        pre_select_cells=True)
+        export=bench_snapshots(metric), sites=("grid_select", RING),
+        uniform_levels=6, n_cells_max=25_000, pre_select_cells=True)
     out = {"phase": "oat2d", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts,
            "launches_per_site": dict(tap.launches)}
     check_expected("oat2d", out)
+    out["analysis"] = analysis(tmp, "oat", s3, field, t)
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
 
 
 def phase_cylinder3d(tmp: str) -> tuple:
-    """Bench workload 2 (``bench.py:304-319``): the ``grid3d`` cloud around
-    the cylinder it was cut for."""
+    """Bench workload 2 (``bench.py:304-338``) end to end: the ``grid3d``
+    cloud around the cylinder it was cut for, 50 snapshots interpolated,
+    then the rank-20 weighted SVD and a DMD."""
     from sparsespatialsampling_torch import CubeGeometry, CylinderGeometry3D
     xyz, metric, bounds = cylinder_wake_3d()
     geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
@@ -934,13 +984,15 @@ def phase_cylinder3d(tmp: str) -> tuple:
                                      [[0.2, 0.2, 0.0], [0.2, 0.2, 0.41]],
                                      0.05, refine=True,
                                      min_refinement_level=7)]
-    s3, _, _, t, counts, tap, _ = main_path_run(
+    s3, _, field, t, counts, tap, _ = main_path_run(
         "cylinder3d", tmp, "cyl", xyz, metric, geometries,
-        sites=("grid_select", RING), uniform_levels=5, n_cells_max=150_000)
+        export=bench_snapshots(metric), sites=("grid_select", RING),
+        uniform_levels=5, n_cells_max=150_000)
     out = {"phase": "cylinder3d", "n_points": int(xyz.shape[0]),
            **grid_summary(s3, t), "launches": counts,
            "launches_per_site": dict(tap.launches)}
     check_expected("cylinder3d", out)
+    out["analysis"] = analysis(tmp, "cyl", s3, field, t)
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
 
@@ -971,6 +1023,295 @@ def phase_mdl2d(tmp: str) -> tuple:
     if out["unbalanced_neighbours"]:
         raise AssertionError(f"mdl2d: {out['unbalanced_neighbours']} "
                              f"neighbour positions break the 2:1 balance")
+    out["kernel_at_call_sites"] = check_sites(tap)
+    return out, counts
+
+
+def bench_snapshots(metric, n_snap: int = 50) -> tuple:
+    """The 50 snapshots and write times of bench workloads 1 and 2
+    (``bench.py:321-325``, ``:822-826``)."""
+    phases = np.linspace(0, 2 * np.pi, n_snap, endpoint=False)
+    snaps = (metric[:, None]
+             * (1 + 0.2 * np.sin(phases)[None, :])).astype(np.float32)
+    return snaps, [f"{t:.4f}" for t in np.arange(n_snap) * 5e-4]
+
+
+def check_matmul_precision() -> dict:
+    """The analysis matmuls (the f32 mode product, the sketch) rely on
+    PyTorch's default of no TF32; a TF32 product would still pass a loose
+    tolerance, so the default is asserted."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    if tf32 or precision != "highest":
+        raise AssertionError(f"f32 matmuls may use TF32 (allow_tf32={tf32}, "
+                             f"float32_matmul_precision={precision!r})")
+    return {"allow_tf32": tf32, "float32_matmul_precision": precision}
+
+
+class SvdTap:
+    """Times the three parts of the tall-skinny SVD (the f64 Gram on the
+    card, the host ``eigh``, the f32 mode product) and counts the routes
+    ``compute_svd`` takes, by wrapping the module functions as
+    :class:`KernelTap` does; each wrapped call is timed between two
+    synchronisations."""
+
+    def __init__(self):
+        from sparsespatialsampling_torch import utils
+        from sparsespatialsampling_torch.ops import svd
+        self._targets = [(svd, "_gram", "t_gram"),
+                         (svd, "_eigh_descending", "t_eigh"),
+                         (svd, "_modes", "t_modes"),
+                         (utils, "economy_svd_device", "economy_svd"),
+                         (utils, "randomized_svd_device", "randomized_svd"),
+                         (utils, "optimal_rank_sketched", "sketched_rank")]
+        self.seconds, self.calls, self._saved = {}, {}, []
+
+    def _wrap(self, fn, key):
+        def tapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[key] = (self.seconds.get(key, 0.0)
+                                 + time.perf_counter() - t0)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return out
+        return tapped
+
+    def __enter__(self):
+        for module, name, key in self._targets:
+            self._saved.append((module, name, getattr(module, name)))
+            setattr(module, name, self._wrap(getattr(module, name), key))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def sorted_eigenvalues(ev: np.ndarray) -> np.ndarray:
+    return ev[np.lexsort((ev.imag, ev.real))]
+
+
+def check_dmd(card: dict, cpu: dict) -> float:
+    """The card's DMD against the port's CPU run of the same input: the
+    same rank, eigenvalues sorted by (real, imag) to 1e-4 (relative, and
+    of the largest); returns the largest difference."""
+    if card["rank"] != cpu["rank"]:
+        raise AssertionError(f"DMD rank {card['rank']} on the card, "
+                             f"{cpu['rank']} on the CPU")
+    a = sorted_eigenvalues(card["eigenvalues"])
+    b = sorted_eigenvalues(cpu["eigenvalues"])
+    err = np.abs(a - b)
+    if (err > 1e-4 * (np.abs(b) + np.abs(b).max())).any():
+        raise AssertionError(f"DMD eigenvalues differ from the CPU's by "
+                             f"{err.max():.3e}")
+    return float(err.max())
+
+
+def analysis(tmp: str, name: str, s3, field, t: dict, rank: int = 20,
+             dmd_rank: int = 10) -> dict:
+    """Bench workloads 1-2's analysis of the interpolated snapshots on the
+    card: ``compute_svd(rank=20)`` (twice: the first call pays the f64
+    kernels' first use) and ``compute_dmd(rank=10)``.  ``s`` must lie
+    within 1e-5·s[0] of a float64 host SVD of the same weighted, mean-free
+    matrix; each of the first five modes whose gap to its neighbours
+    exceeds 1e-3·s[0] must have ``|cos| ≥ 1 - 1e-4`` with the reference's;
+    the DMD eigenvalues must match the port's CPU run."""
+    from sparsespatialsampling_torch import compute_dmd, compute_svd
+    if field is None:
+        from sparsespatialsampling_torch import Dataloader
+        field = Dataloader(tmp, f"{name}.h5").load_snapshot("k")
+    else:
+        field = field[:, 0, :]
+    area = np.squeeze((s3.size_initial_cell
+                       / np.power(2.0, np.asarray(s3.levels, np.float64)))
+                      ** s3.n_dimensions)
+    walls = []
+    for _ in range(2):
+        with SvdTap() as tap:
+            t0 = time.perf_counter()
+            s, u, v = compute_svd(field, area, rank=rank)
+            walls.append(time.perf_counter() - t0)
+    if tap.calls.get("economy_svd") != 1 or "t_gram" not in tap.calls:
+        raise AssertionError(f"compute_svd took the routes {tap.calls}, "
+                             f"not the tall-skinny Gram route")
+    dmd_walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        dmd = compute_dmd(field, area, rank=dmd_rank)
+        dmd_walls.append(time.perf_counter() - t0)
+    dmd_err = check_dmd(dmd, compute_dmd(field, area, rank=dmd_rank,
+                                         device="cpu"))
+
+    w = np.sqrt(area.astype(np.float32)).astype(np.float64)
+    x = field.astype(np.float64)
+    x = (x - x.mean(axis=1, keepdims=True)) * w[:, None]
+    u_ref, s_ref, _ = np.linalg.svd(x, full_matrices=False)
+    if s.shape != (rank,) or u.shape != (field.shape[0], rank) \
+            or v.shape != (field.shape[1], rank) \
+            or not (np.isfinite(s).all() and np.isfinite(u).all()):
+        raise AssertionError(f"compute_svd gave s {s.shape}, U {u.shape}, "
+                             f"V {v.shape}, or non-finite values")
+    s_err = float(np.abs(s - s_ref[:rank]).max() / s_ref[0])
+    if s_err > 1e-5:
+        raise AssertionError(f"s deviates from the float64 host SVD by "
+                             f"{s_err:.3e}·s[0]")
+    cosines = {}
+    for i in range(5):
+        gap = min(s_ref[i - 1] - s_ref[i] if i else np.inf,
+                  s_ref[i] - s_ref[i + 1]) / s_ref[0]
+        if gap <= 1e-3:
+            cosines[f"mode_{i + 1}"] = f"gap {gap:.3e}·s[0]: not compared"
+            continue
+        uw = u[:, i] * w
+        cos = float(abs(uw @ u_ref[:, i]) / np.linalg.norm(uw))
+        if cos < 1 - 1e-4:
+            raise AssertionError(f"mode {i + 1}: |cos| {cos} with the "
+                                 f"float64 reference")
+        cosines[f"mode_{i + 1}"] = cos
+    return {"field_shape": list(field.shape),
+            "wall_s": {"grid": t["refine"], "interpolate": t["export"],
+                       "svd": walls, "dmd": dmd_walls},
+            "svd_split_s": tap.seconds, "svd_routes": tap.calls,
+            "rank": int(s.shape[0]), "s_top5": s[:5].tolist(),
+            "s_ref_top5": s_ref[:5].tolist(),
+            "s_max_err_over_s0": s_err, "mode_cosines": cosines,
+            "dmd_rank": int(dmd["rank"]),
+            "dmd_eigenvalues": [str(e) for e in
+                                sorted_eigenvalues(dmd["eigenvalues"])],
+            "dmd_eigenvalue_max_err_vs_cpu": dmd_err,
+            "hdf5": ("export written; write_svd_s_cube_to_file is held on "
+                     "the CPU (tests/test_torch_analysis.py)" if HAVE_H5PY
+                     else "not written: h5py is not installed here, so "
+                     "write_svd_s_cube_to_file is held on the CPU only "
+                     "(tests/test_torch_analysis.py)")}
+
+
+# the planted singular values of svd_routes: the weakest stands about 32x
+# above the 1e-3 noise's floor of about 0.78 (so the planted modes are
+# recovered to 1e-2), and the strongest within about 80x of it, so the f32
+# rounding that both devices add to the noise part of the sketch stays
+# near eps32·80 ≈ 1e-5 of the noise singular values
+PLANTED = (60.0, 45.0, 35.0, 25.0)
+
+
+def planted_matrix(m: int = 600_000, n: int = 50, noise: float = 1e-3,
+                   seed: int = 5, device: str = "cuda") -> tuple:
+    """``[m, n]`` f32 on the card: ``U0 diag(PLANTED) V0ᵀ`` with orthonormal
+    U0 and V0 (V0's columns mean-free, so ``compute_svd``'s removal of the
+    temporal mean keeps the planted modes) plus Gaussian noise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device,
+                           dtype=torch.float64)
+    u0 = torch.linalg.qr(randn(m, len(PLANTED))).Q
+    v0 = randn(n, len(PLANTED))
+    v0 = torch.linalg.qr(v0 - v0.mean(dim=0)).Q
+    sigma = torch.tensor(PLANTED, dtype=torch.float64, device=device)
+    a = ((u0 * sigma) @ v0.T + noise * randn(m, n)).float()
+    return a, u0.cpu().numpy(), v0.cpu().numpy()
+
+
+def subspace_cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Cosines of the principal angles between two column spaces."""
+    qa = np.linalg.qr(np.asarray(a, np.float64))[0]
+    qb = np.linalg.qr(np.asarray(b, np.float64))[0]
+    return np.linalg.svd(qa.T @ qb, compute_uv=False)
+
+
+def phase_svd_routes() -> dict:
+    """The randomized route, which neither workload reaches: a seeded
+    [600000, 50] matrix with four planted modes through
+    ``compute_svd(rank=None)`` on the card (it must take
+    ``randomized_svd`` and the sketched rank), against the planted
+    spectrum and ``economy_svd`` (top four values to rtol 1e-2, subspace
+    cosines ≥ 0.999); then ``randomized_svd(rank=20)`` on the card against
+    the port's CPU run (the same sketch), ``s`` to rtol 1e-4."""
+    from sparsespatialsampling_torch import compute_svd
+    from sparsespatialsampling_torch.ops.svd import (economy_svd,
+                                                     randomized_svd)
+    a, u0, v0 = planted_matrix()
+    ones = np.ones(a.shape[0], dtype=np.float32)
+    walls = {}
+    with SvdTap() as tap:
+        t0 = time.perf_counter()
+        s, u, v = compute_svd(a, ones)
+        walls["compute_svd_auto"] = time.perf_counter() - t0
+    if (tap.calls.get("randomized_svd") != 1
+            or tap.calls.get("sketched_rank") != 1
+            or "economy_svd" in tap.calls):
+        raise AssertionError(f"compute_svd took the routes {tap.calls}, not "
+                             f"randomized_svd with the sketched rank")
+    k = len(PLANTED)
+    if s.shape[0] < k:
+        raise AssertionError(f"the sketched rank is {s.shape[0]}, below the "
+                             f"{k} planted modes")
+    t0 = time.perf_counter()
+    u_e, s_e, v_e = economy_svd(a)
+    walls["economy_svd"] = time.perf_counter() - t0
+    cos = {"planted_u": subspace_cosines(u[:, :k], u0).min(),
+           "planted_v": subspace_cosines(v[:, :k], v0).min(),
+           "economy_u": subspace_cosines(u[:, :k], u_e[:, :k]).min(),
+           "economy_v": subspace_cosines(v[:, :k], v_e[:, :k]).min()}
+    rel = {"planted": np.abs(s[:k] / np.asarray(PLANTED) - 1).max(),
+           "economy": np.abs(s[:k] / s_e[:k] - 1).max()}
+    if max(rel.values()) > 1e-2 or min(cos.values()) < 0.999:
+        raise AssertionError(f"svd_routes: top {k} values off by {rel}, "
+                             f"subspace cosines {cos}")
+    t0 = time.perf_counter()
+    _, s_card, _ = randomized_svd(a, rank=20)
+    walls["randomized_svd_rank20"] = time.perf_counter() - t0
+    a_cpu = a.cpu()
+    t0 = time.perf_counter()
+    _, s_cpu, _ = randomized_svd(a_cpu, rank=20, device="cpu")
+    walls["randomized_svd_rank20_cpu"] = time.perf_counter() - t0
+    rsvd_err = float(np.abs(s_card / s_cpu - 1).max())
+    if rsvd_err > 1e-4:
+        raise AssertionError(f"randomized_svd(rank=20) on the card differs "
+                             f"from the CPU's by {rsvd_err:.3e} (relative)")
+    return {"phase": "svd_routes", "shape": list(a.shape),
+            "planted": list(PLANTED), "routes": tap.calls,
+            "sketched_rank": int(s.shape[0]), "s_top": s[:k + 1].tolist(),
+            "s_economy_top": s_e[:k + 1].tolist(),
+            "max_rel_err_top4": {key: float(v) for key, v in rel.items()},
+            "min_subspace_cos": {key: float(v) for key, v in cos.items()},
+            "rank20_s_max_rel_err_vs_cpu": rsvd_err,
+            "rank20_s": s_card.tolist(), "wall_s": walls,
+            "split_s": tap.seconds}
+
+
+def phase_c2d_reltol(tmp: str) -> tuple:
+    """Bench workload 3 (``bench.py:341-430``) at its own 25 000 points:
+    the tutorial-1 configuration on the field calibrated to stall, which
+    must stop on the relTol rule below ``min_metric``.  The cloud is under
+    ``GRID_MIN_POINTS``, so the full scan answers every query."""
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xy, metric, bounds = calibrated_cylinder2d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
+                                 refine=True, min_refinement_level=9)]
+    s3, _, _, t, counts, tap, _ = main_path_run(
+        "c2d_reltol", tmp, "c2d", xy, metric, geometries,
+        sites=("full_scan_tile", "full_scan_merge"), uniform_levels=5,
+        min_metric=0.75)
+    out = {"phase": "c2d_reltol", "n_points": int(xy.shape[0]),
+           **grid_summary(s3, t), "launches": counts,
+           "launches_per_site": dict(tap.launches)}
+    check_expected("c2d_reltol", out)
+    trace = np.asarray(s3.data_final_mesh["metric_per_iter"])
+    stall = abs(trace[-1] - trace[-2])
+    if not (0.75 * 0.75 <= trace[-1] < 0.75 and stall <= 1e-3):
+        raise AssertionError(f"c2d_reltol: stopped at {trace[-1]} captured "
+                             f"after a step of {stall}, not on the relTol "
+                             f"rule")
+    out["reltol_stop"] = {"captured": float(trace[-1]),
+                          "last_step": float(stall),
+                          "jax_recorded_captured": 0.5652,
+                          "jax_recorded_source": "BENCH_r05.json",
+                          "jax_tpu_recorded_iterations": 72,
+                          "jax_tpu_recorded_source": "BENCH_r04.json"}
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
 
@@ -1505,12 +1846,16 @@ def main() -> int:
         blocked, counts_blk = phase_blocked_layout(tmp)
         emit(blocked)
         emit(phase_large_k())
+        emit({"phase": "matmul_precision", **check_matmul_precision()})
         oat, counts_oat = phase_oat2d(tmp)
         emit(oat)
         cyl, counts_cyl = phase_cylinder3d(tmp)
         emit(cyl)
         mdl, counts_mdl = phase_mdl2d(tmp)
         emit(mdl)
+        emit(phase_svd_routes())
+        c2d, counts_c2d = phase_c2d_reltol(tmp)
+        emit(c2d)
         emit(phase_geometry_cuda_vs_cpu(tmp))
         wk, ((big_path, _), (small_path, small), _) = \
             phase_winding_kernel(tmp)
@@ -1529,7 +1874,7 @@ def main() -> int:
     sites = {**sites3d,
              BLOCKED: blocked["kernel_at_call_sites"][BLOCKED]}
     checks = (kernel["cases"] + list(sites3d.values())
-              + [c for phase in (grid2d, blocked, oat, cyl, mdl)
+              + [c for phase in (grid2d, blocked, oat, cyl, mdl, c2d)
                  for c in phase["kernel_at_call_sites"].values()])
     timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -1544,6 +1889,7 @@ def main() -> int:
         "launches_oat2d": counts_oat["topk_smallest"],
         "launches_cylinder3d": counts_cyl["topk_smallest"],
         "launches_mdl2d": counts_mdl["topk_smallest"],
+        "launches_c2d_reltol": counts_c2d["topk_smallest"],
         "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{key: sites3d["full_scan_tile"][key] for key in timed},

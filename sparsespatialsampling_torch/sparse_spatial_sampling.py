@@ -182,3 +182,29 @@ class SparseSpatialSampling:
                 "the run stops at the cell budget and 'min_metric' is "
                 "ignored. Leave 'n_cells_max' unset (None) to stop on the "
                 "captured-metric target instead.")
+
+
+def list_geometries() -> None:
+    """Log every geometry class of the port with a one-line summary
+    (behavioral mirror of the reference ``list_geometries``,
+    ``sparse_spatial_sampling.py:190-212``)."""
+    from . import geometry
+    from .geometry.base import GeometryObject
+
+    entries = {}
+    for attr in dir(geometry):
+        cls = getattr(geometry, attr)
+        if (isinstance(cls, type) and issubclass(cls, GeometryObject)
+                and cls is not GeometryObject):
+            doc = getattr(cls, "__short_description__", None) or (cls.__doc__ or "")
+            summary = " ".join(doc.split())
+            if len(summary) > 96:
+                summary = summary[:96].rsplit(" ", 1)[0] + " ..."
+            entries[cls.__name__] = summary
+
+    pad = max(map(len, entries), default=0)
+    lines = ["", "\tGeometry classes shipped with this package:"]
+    lines += [f"\t  {name:<{pad}}  {desc}"
+              for name, desc in sorted(entries.items())]
+    lines.append("\tSee the package docs for each class's constructor details.")
+    logger.info("\n".join(lines))

@@ -1,7 +1,8 @@
 """The port's public API against the JAX package's.
 
-- Every name in the JAX package's ``__all__`` is in the port's, or on
-  ``NOT_YET_PORTED``; the port exports no name the JAX package lacks.
+- Every name in the JAX package's ``__all__`` is in the port's
+  (``NOT_YET_PORTED`` is empty); the port exports no name the JAX package
+  lacks.
 - Each public function there, and each public method of a class there
   (``__init__`` included), takes the JAX package's parameters first, with
   the same names, kinds and defaults; the port may add a trailing
@@ -29,9 +30,7 @@ import sparsespatialsampling_torch as tpkg  # noqa: E402
 from tests.test_torch_pipeline import _h5_items  # noqa: E402
 
 # names of the JAX package's __all__ that the port does not have yet
-NOT_YET_PORTED = {"compute_svd", "compute_dmd", "write_svd_s_cube_to_file",
-                  "load_foam_data", "load_original_Foam_fields",
-                  "export_openfoam_fields", "list_geometries"}
+NOT_YET_PORTED = set()
 
 NAMES = sorted(jpkg.__all__)
 METHODS = sorted(
@@ -62,9 +61,6 @@ def test_not_yet_ported_names_are_exactly_the_missing_ones():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_public_name(name):
-    if name in NOT_YET_PORTED:
-        assert not hasattr(tpkg, name)
-        return
     assert name in tpkg.__all__
     ours, theirs = getattr(tpkg, name), getattr(jpkg, name)
     if inspect.isfunction(theirs):
