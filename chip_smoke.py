@@ -79,6 +79,15 @@ Phases:
   to level 12 (the tutorial-3 configuration at 10x its points): 28 406
   cells after 34 iterations, and no two leaves that share a face, an edge
   or a corner more than one level apart;
+- ``mdl2d_25k``: bench workload 5, the tutorial-3 configuration at its own
+  25 000 points (``bench.synthetic_cylinder2d(calibrated=False)``, the
+  full scan answers every query): 4 961 cells after 25 iterations, the
+  JAX package's figures (``BENCH_r04.json``), 2:1 balanced;
+- ``device_loop_vs_host``: the ``cuda_vs_cpu`` case and ``mdl2d_25k`` on
+  the card with ``SamplingTree.DEVICE_LOOP`` on and off: identical cells,
+  levels and iterations, metric traces to rtol 1e-5; the device loop's
+  first window of the 3D case under ``torch.profiler`` (device time,
+  device and host operations per iteration);
 - ``svd_routes``: a seeded [600 000, 50] matrix on the card with four
   planted modes over 1e-3 noise through ``compute_svd(rank=None)``, which
   must take ``randomized_svd`` and the sketched rank; the top four values
@@ -121,6 +130,13 @@ Phases:
   of the ``stl3d`` cloud around that sphere refined to level 6, whose
   grids on the card and on the CPU must be identical.
 
+Every grid phase prints its adaptive route (``adaptive_route``: the
+device-resident loop's windows, their iterations, the host iterations and
+why, why each window ended, reads back per iteration, and the other
+synchronising operations inside windows) and fails unless the loop ran at
+least 90 % of the iterations where it is eligible; ``blocked_layout``'s
+run must take the host loop.
+
 The launch counters are set to 0 just before each main-path run and read
 just after it; every main-path run must have launched every kernel of its
 path (``winding_number`` is on ``stl3d``'s only), from each of its required
@@ -142,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -332,7 +349,10 @@ MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
 EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67),
             "oat2d": (27_084, 33), "cylinder3d": (151_370, 43),
             "mdl2d": (28_406, 34), "stl3d": (40_202, 29),
-            "c2d_reltol": (10_415, 135)}
+            "c2d_reltol": (10_415, 135), "mdl2d_25k": (4_961, 25)}
+# the fraction of a run's adaptive iterations the device loop must run
+# where it is eligible (the rest only where a guard explains them)
+LOOP_SHARE = 0.9
 
 
 def site_of(frame) -> str:
@@ -394,6 +414,134 @@ def read_counts() -> dict:
     from sparsespatialsampling_torch.ops import topk, winding
     return {"topk_smallest": topk.launches,
             "winding_number": winding.launches}
+
+
+class WindowTap:
+    """Runs each window of the device loop (``SamplingTree._run_window``)
+    through :meth:`around` while in a ``with`` block."""
+
+    def __enter__(self):
+        from sparsespatialsampling_torch.engine.tree import SamplingTree
+        self._cls = SamplingTree
+        self._orig = SamplingTree.__dict__["_run_window"]
+        run = self._orig.__func__
+        self._cls._run_window = staticmethod(
+            lambda *args: self.around(run, args))
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._run_window = self._orig
+
+    def around(self, run, args):
+        return run(*args)
+
+
+class SyncTap(WindowTap):
+    """Counts the synchronising CUDA operations inside the device loop's
+    windows (``torch.cuda.set_sync_debug_mode("warn")``): copies from host
+    memory, reads of device values, ``nonzero``.  The engine's own window
+    reads wait on events and are not among them (the engine counts them,
+    ``d2h_syncs``).  A probe read first shows whether the mode warns at
+    all (``works``)."""
+
+    def __init__(self):
+        self.syncs = 0
+        self.works = len(self._warned(
+            lambda: torch.ones(1, device="cuda").item())[1]) > 0
+
+    @staticmethod
+    def _warned(call) -> tuple:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [w for w in caught if "synchroniz" in str(w.message)]
+
+    def around(self, run, args):
+        out, syncs = self._warned(lambda: run(*args))
+        self.syncs += len(syncs)
+        return out
+
+
+class WindowProfile(WindowTap):
+    """``torch.profiler`` over the first window of the device loop run
+    inside it: the window's iterations, its device time, and the device
+    operations (kernels, copies, memsets) and host operators it issued,
+    each per iteration.  The profiler slows the host, so its wall is not
+    the window's."""
+
+    out = None
+
+    def around(self, run, args):
+        if self.out is not None:
+            return run(*args)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            res = run(*args)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        on_card = [e for e in rows if device_ms(e) > 0.0]
+        its = max(res[0], 1)
+        self.out = {
+            "iterations": res[0],
+            "device_ms_per_iteration": sum(map(device_ms, rows)) / its,
+            "device_ops_per_iteration": sum(e.count for e in on_card) / its,
+            "host_ops_per_iteration": sum(
+                e.count for e in rows if e.key.startswith("aten::")) / its}
+        return res
+
+
+def adaptive_route(s3, sync=None) -> dict:
+    """Which route ran the adaptive iterations, from the engine's
+    counters: the device loop's windows, the iterations they ran, the host
+    iterations and why, why each window ended, the state uploads and rows
+    scattered on re-entry, and the reads back to the host per window
+    iteration (the engine's, and, with ``sync``, every other
+    synchronising operation inside the windows)."""
+    info = s3.data_final_mesh
+    st = info["epoch_stats"]
+    w_iters = int(st["window_iters"])
+    out = {"route": "device_loop" if st["windows"] else "host_loop",
+           "windows": int(st["windows"]), "window_iterations": w_iters,
+           "host_iterations": int(info["iterations"]) - w_iters,
+           "host_fallback": dict(st["host_fallback"]),
+           "window_exits": dict(st["window_exits"]),
+           "state_uploads": int(st["state_uploads"]),
+           "rows_reuploaded": int(st["rows_reuploaded"]),
+           "d2h_syncs": int(st["d2h_syncs"]),
+           "d2h_syncs_per_window_iteration": st["d2h_syncs"] / max(w_iters, 1),
+           "window_wall_s": float(info["adaptive_split"]["t_window"])}
+    if sync is not None:
+        out["other_syncs_in_windows"] = (sync.syncs if sync.works
+                                         else "not measured")
+        if sync.works:
+            out["other_syncs_per_window_iteration"] = (sync.syncs
+                                                       / max(w_iters, 1))
+    return out
+
+
+def check_route(phase: str, route: dict, device_loop: bool) -> None:
+    """The device loop must have run the adaptive iterations where it is
+    eligible: fewer windows than iterations and at least ``LOOP_SHARE`` of
+    the iterations, unless host iterations at the level cap or past the
+    loop's budget explain the rest; elsewhere the host loop alone."""
+    if not device_loop:
+        if route["windows"]:
+            raise AssertionError(f"{phase}: the device loop ran where the "
+                                 f"host loop must: {route}")
+        return
+    w, iters = route["windows"], (route["window_iterations"]
+                                  + route["host_iterations"])
+    fb = route["host_fallback"]
+    explained = fb["level_cap"] + fb["disabled"]
+    if not (0 < w < iters) or (route["window_iterations"] < LOOP_SHARE * iters
+                               and route["host_iterations"] > explained):
+        raise AssertionError(f"{phase}: the device loop did not carry the "
+                             f"adaptive iterations: {route}")
 
 
 def cylinder_wake_3d(n_points: int = 500_000, seed: int = 1):
@@ -540,9 +688,11 @@ def grid_summary(s3, phase_t: dict) -> dict:
             "retry_wall_s": float(st["t_retry_s"]),
             "adaptive_split_s": {key: float(v) for key, v in
                                  info["adaptive_split"].items()
-                                 if key != "n_iter"},
+                                 if key.startswith("t_")},
+            "adaptive_route": phase_t.get("adaptive_route"),
             "max_level": int(info["max_level"]),
             "wall_s": {"init": phase_t["init"],
+                       "knn_build": float(info["t_knn_build"]),
                        "uniform": float(info["t_uniform"]),
                        "adaptive": float(info["t_adaptive"]),
                        "geometry": (None if info["t_geometry"] is None
@@ -620,17 +770,24 @@ def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
 
 def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
                   export=None, sites=MAIN_SITES, kernels=("topk_smallest",),
-                  **kw):
+                  device_loop=True, **kw):
     """One main-path run with the counters set to 0 just before it and read
     just after; each of ``kernels`` (those of the run's path) and each of
     ``sites`` must have launched, and no selection may have taken the
-    stable sort."""
-    with KernelTap() as tap:
+    stable sort.  The adaptive iterations must have taken the device loop
+    where ``device_loop`` (and ``SamplingTree.DEVICE_LOOP``) says so, else
+    the host loop (:func:`check_route`); the route goes into the walls'
+    ``adaptive_route``."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    with KernelTap() as tap, SyncTap() as sync:
         reset_counts()
         s3, exp, field, t, tree = run_grid(tmp, name, pts, metric,
                                            geometries, export, **kw)
         torch.cuda.synchronize()
         counts = read_counts()
+    t["adaptive_route"] = adaptive_route(s3, sync)
+    check_route(phase, t["adaptive_route"],
+                device_loop and SamplingTree.DEVICE_LOOP)
     missing = [n for n in kernels if counts[n] == 0]
     missing += [s for s in sites if not tap.launches.get(s)]
     if missing:
@@ -875,6 +1032,8 @@ def case_summary(s3, t) -> dict:
             "ring_queries": int(st["ring_queries"]),
             "bad_cells_escalated": int(st["n_bad_cells"]),
             "bad_cells_to_full_scan": int(st["full_scan_cells"]),
+            "route": "device_loop" if st["windows"] else "host_loop",
+            "windows": int(st["windows"]),
             "refine_s": t["refine"]}
 
 
@@ -905,14 +1064,15 @@ def phase_blocked_layout(tmp: str) -> tuple:
     try:
         s3, _, _, t, counts, tap, _ = main_path_run(
             "blocked_layout", tmp, "blk", xyz, metric, geometries,
-            sites=(BLOCKED,), **kw)
+            sites=(BLOCKED,), device_loop=False, **kw)
     finally:
         KNNIndex.DIL_MAX_BYTES = saved
     if "dil_pts" in s3._knn_index._grid:
         raise AssertionError("blocked_layout: the index built a dilated "
                              "layout")
     out["blocked"] = {**case_summary(s3, t), "launches": counts,
-                      "launches_per_site": dict(tap.launches)}
+                      "launches_per_site": dict(tap.launches),
+                      "adaptive_route": t["adaptive_route"]}
     out.update(compare_grids("dilated and blocked", dilated, grid_key(s3)))
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
@@ -1001,30 +1161,116 @@ def phase_mdl2d(tmp: str) -> tuple:
     """The tutorial-3 configuration (``bench.py:391-420``) at 10x its
     points: the 2:1 balance in the adaptive loop and the geometry
     refinement."""
-    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
-    xy, metric, bounds = channel_wake_2d()
-    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
-                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
-                                 refine=True, min_refinement_level=12)]
+    xy, metric, bounds, geometries, kw = mdl_case(250_000)
     s3, _, _, t, counts, tap, _ = main_path_run(
         "mdl2d", tmp, "mdl", xy, metric, geometries,
-        sites=("grid_select", RING), uniform_levels=5, min_metric=0.5,
-        max_delta_level=True)
+        sites=("grid_select", RING), **kw)
     out = {"phase": "mdl2d", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts,
            "launches_per_site": dict(tap.launches),
            "t_expand_s": float(
                s3.data_final_mesh["adaptive_split"]["t_expand"])}
     check_expected("mdl2d", out)
-    width = s3.size_initial_cell
-    lo = (np.asarray(bounds[0]) + np.asarray(bounds[1])) / 2 - width / 2
-    out["unbalanced_neighbours"] = unbalanced(s3.centers, s3.levels, lo,
-                                              width)
-    if out["unbalanced_neighbours"]:
-        raise AssertionError(f"mdl2d: {out['unbalanced_neighbours']} "
-                             f"neighbour positions break the 2:1 balance")
+    out["unbalanced_neighbours"] = check_balanced("mdl2d", s3, bounds)
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
+
+
+def check_balanced(phase: str, s3, bounds) -> int:
+    """No two leaves that share a face, an edge or a corner may lie more
+    than one level apart (``max_delta_level``)."""
+    width = s3.size_initial_cell
+    lo = (np.asarray(bounds[0]) + np.asarray(bounds[1])) / 2 - width / 2
+    bad = unbalanced(s3.centers, s3.levels, lo, width)
+    if bad:
+        raise AssertionError(f"{phase}: {bad} neighbour positions break the "
+                             f"2:1 balance")
+    return bad
+
+
+def mdl_case(n_points: int):
+    """The tutorial-3 configuration (``bench.py:391-420``) on the clean
+    wake cloud: ``(points, metric, bounds, geometries, arguments)``;
+    ``channel_wake_2d(25_000)`` is ``bench.synthetic_cylinder2d(
+    calibrated=False)``."""
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xy, metric, bounds = channel_wake_2d(n_points)
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
+                                 refine=True, min_refinement_level=12)]
+    return xy, metric, bounds, geometries, {
+        "uniform_levels": 5, "min_metric": 0.5, "max_delta_level": True}
+
+
+def phase_mdl2d_25k(tmp: str) -> tuple:
+    """Bench workload 5 at its own 25 000 points: the 2:1 closure inside
+    the device loop over the full-scan core (the cloud is under
+    ``GRID_MIN_POINTS``).  The grid must be the JAX package's 4 961 cells
+    after 25 iterations (``BENCH_r04.json``, and both of its loops on the
+    CPU).  Returns the phase's line, its launches and its grid."""
+    xy, metric, bounds, geometries, kw = mdl_case(25_000)
+    s3, _, _, t, counts, tap, _ = main_path_run(
+        "mdl2d_25k", tmp, "mdl25k", xy, metric, geometries,
+        sites=("full_scan_tile", "full_scan_merge"), **kw)
+    out = {"phase": "mdl2d_25k", "n_points": int(xy.shape[0]),
+           **grid_summary(s3, t), "launches": counts,
+           "launches_per_site": dict(tap.launches),
+           "jax_recorded": {"n_cells": 4961, "iterations": 25,
+                            "captured": 0.501, "source": "BENCH_r04.json"}}
+    check_expected("mdl2d_25k", out)
+    out["unbalanced_neighbours"] = check_balanced("mdl2d_25k", s3, bounds)
+    out["kernel_at_call_sites"] = check_sites(tap)
+    return out, counts, grid_key(s3)
+
+
+def compare_routes(what: str, loop: tuple, host: tuple) -> dict:
+    """The device loop's grid against the host loop's: the same cells,
+    levels and iterations, the metric trace to rtol 1e-5."""
+    out = compare_grids(what, loop, host)
+    ma, mb = loop[3], host[3]
+    if ma.shape != mb.shape or not np.allclose(ma, mb, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"{what}: metric traces differ beyond rtol "
+                             f"1e-5 (lengths {ma.size}, {mb.size})")
+    out["metric_trace_max_rel_diff"] = float(
+        (np.abs(ma - mb) / np.abs(mb)).max())
+    return out
+
+
+def phase_device_loop_vs_host(tmp: str, mdl25k_key: tuple) -> dict:
+    """The ``cuda_vs_cpu`` case and the ``mdl2d_25k`` configuration on the
+    card with ``SamplingTree.DEVICE_LOOP`` on and off (the ``mdl2d_25k``
+    phase's run is the device-loop side of the second); the device-loop
+    run's first window is profiled (:class:`WindowProfile`)."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    out = {"phase": "device_loop_vs_host"}
+
+    def run(name, pts, metric, geometries, loop, **kw):
+        SamplingTree.DEVICE_LOOP = loop
+        try:
+            with WindowProfile() as prof:
+                s3, _, _, t, _ = run_grid(tmp, name, pts, metric,
+                                          geometries, **kw)
+        finally:
+            SamplingTree.DEVICE_LOOP = True
+        if prof.out is not None:
+            out[f"{name}_first_window_profile"] = prof.out
+        check_route(name, adaptive_route(s3), loop)
+        return grid_key(s3), {**case_summary(s3, t),
+                              "adaptive_route": adaptive_route(s3)}
+    xyz, metric, geometries, kw = compare_case()
+    keys = {}
+    for loop in (True, False):
+        route = "device_loop" if loop else "host_loop"
+        keys[loop], out[f"cuda_vs_cpu_case_{route}"] = run(
+            f"dlh_{route}", xyz, metric, geometries, loop, **kw)
+    out["cuda_vs_cpu_case"] = compare_routes(
+        "cuda_vs_cpu case, device and host loop", keys[True], keys[False])
+    xy, metric, _, geometries, kw = mdl_case(25_000)
+    host, out["mdl2d_25k_host"] = run("dlh_mdl", xy, metric, geometries,
+                                      False, **kw)
+    out["mdl2d_25k"] = compare_routes(
+        "mdl2d_25k, device and host loop", mdl25k_key, host)
+    return out
 
 
 def bench_snapshots(metric, n_snap: int = 50) -> tuple:
@@ -1853,6 +2099,9 @@ def main() -> int:
         emit(cyl)
         mdl, counts_mdl = phase_mdl2d(tmp)
         emit(mdl)
+        mdl25k, counts_mdl25k, mdl25k_key = phase_mdl2d_25k(tmp)
+        emit(mdl25k)
+        emit(phase_device_loop_vs_host(tmp, mdl25k_key))
         emit(phase_svd_routes())
         c2d, counts_c2d = phase_c2d_reltol(tmp)
         emit(c2d)
@@ -1874,7 +2123,8 @@ def main() -> int:
     sites = {**sites3d,
              BLOCKED: blocked["kernel_at_call_sites"][BLOCKED]}
     checks = (kernel["cases"] + list(sites3d.values())
-              + [c for phase in (grid2d, blocked, oat, cyl, mdl, c2d)
+              + [c for phase in (grid2d, blocked, oat, cyl, mdl, mdl25k, c2d,
+                                 stl)
                  for c in phase["kernel_at_call_sites"].values()])
     timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -1889,7 +2139,10 @@ def main() -> int:
         "launches_oat2d": counts_oat["topk_smallest"],
         "launches_cylinder3d": counts_cyl["topk_smallest"],
         "launches_mdl2d": counts_mdl["topk_smallest"],
+        "launches_mdl2d_25k": counts_mdl25k["topk_smallest"],
         "launches_c2d_reltol": counts_c2d["topk_smallest"],
+        "launches_stl3d": counts_stl["topk_smallest"],
+        "launches_route": "device loop, blocked_layout's the host loop",
         "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{key: sites3d["full_scan_tile"][key] for key in timed},

@@ -1,16 +1,24 @@
-"""Grid walls of two checkouts' smoke phases, in turns, on one card.
+"""Grid walls of smoke phases, in turns, on one card.
 
     python3 smoke_compare.py OLD_DIR NEW_DIR [ROUNDS]
+    python3 smoke_compare.py --routes DIR [ROUNDS]
 
-Each run is a fresh process in one checkout, in the order OLD, NEW, NEW,
-OLD, then NEW, OLD, OLD, NEW, and so on for ROUNDS (default 2) pairs of
-pairs.  A run builds that checkout's kernels and calls the checkout's own
-``chip_smoke.py`` phases ``grid2d_metric``, ``oat2d``, ``cylinder3d`` and
-``mdl2d`` (each checks its pinned grid), then prints one JSON line of
-their ``refine_total``, ``init`` and epoch walls.  The last line is the
-card's ``nvidia-smi`` name and power limit.  Write an older commit into a
-git-ignored directory first, e.g. ``git archive <commit> | tar -x -C
+The first form runs two checkouts: each run is a fresh process in one
+checkout, in the order OLD, NEW, NEW, OLD, then NEW, OLD, OLD, NEW, and so
+on for ROUNDS (default 2) pairs of pairs.  A run builds that checkout's
+kernels and calls the checkout's own ``chip_smoke.py`` phases
+``grid2d_metric``, ``oat2d``, ``cylinder3d`` and ``mdl2d`` (each checks
+its pinned grid), then prints one JSON line of their ``refine_total``,
+``init`` and epoch walls.  Write an older commit into a git-ignored
+directory first, e.g. ``git archive <commit> | tar -x -C
 _smoke_checkout/parent``.
+
+The second form runs one checkout's adaptive routes in the same turns:
+the device-resident loop (``SamplingTree.DEVICE_LOOP = True``, the
+default) against the host loop (``False``), over every grid workload with
+a pin (``ROUTE_PHASES``); each run's line also carries its route counters.
+
+The last line is the card's ``nvidia-smi`` name and power limit.
 """
 import json
 import os
@@ -19,10 +27,13 @@ import sys
 import tempfile
 
 PHASES = ("grid2d_metric", "oat2d", "cylinder3d", "mdl2d")
+ROUTE_PHASES = ("grid3d", "grid2d_metric", "oat2d", "cylinder3d", "mdl2d",
+                "mdl2d_25k", "c2d_reltol", "stl3d")
 
 
-def walls(checkout: str) -> dict:
-    """One run's walls, in this process (the child of :func:`main`)."""
+def walls(checkout: str, route: str = None) -> dict:
+    """One run's walls, in this process (the child of :func:`main`);
+    ``route`` ("device_loop" or "host_loop") sets the adaptive route."""
     checkout = os.path.abspath(checkout)
     sys.path.insert(0, checkout)
     os.chdir(checkout)
@@ -30,28 +41,45 @@ def walls(checkout: str) -> dict:
     from sparsespatialsampling_torch import _build
     _build.build_all()
     out = {"checkout": checkout}
+    phases = PHASES
+    if route is not None:
+        from sparsespatialsampling_torch.engine.tree import SamplingTree
+        SamplingTree.DEVICE_LOOP = route == "device_loop"
+        out["route"] = route
+        phases = ROUTE_PHASES
     with tempfile.TemporaryDirectory() as tmp:
-        for name in PHASES:
-            d, _ = getattr(chip_smoke, f"phase_{name}")(tmp)
+        for name in phases:
+            args = (tmp,)
+            if name == "stl3d":
+                args += (os.path.join(tmp, "sphere.stl"),)
+                chip_smoke.sphere_stl(args[1])
+            d = getattr(chip_smoke, f"phase_{name}")(*args)[0]
             out[name] = {"refine_total": d["wall_s"]["refine_total"],
                          "init": d["wall_s"]["init"],
                          "epoch_wall_s": d["epoch_wall_s"]}
+            if route is not None:
+                out[name]["adaptive_split_s"] = d["adaptive_split_s"]
+                out[name]["adaptive_route"] = d["adaptive_route"]
     return out
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(walls(sys.argv[2])), flush=True)
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--one":
+        route = sys.argv[3] if len(sys.argv) == 4 else None
+        print(json.dumps(walls(sys.argv[2], route)), flush=True)
         return 0
     if len(sys.argv) not in (3, 4):
         print(__doc__, file=sys.stderr)
         return 2
-    old, new = sys.argv[1], sys.argv[2]
     rounds = int(sys.argv[3]) if len(sys.argv) == 4 else 2
-    order = [old, new, new, old, new, old, old, new] * rounds
-    for checkout in order[:4 * rounds]:
+    if sys.argv[1] == "--routes":
+        a, b = [sys.argv[2], "device_loop"], [sys.argv[2], "host_loop"]
+    else:
+        a, b = [sys.argv[1]], [sys.argv[2]]
+    order = [a, b, b, a, b, a, a, b] * rounds
+    for args in order[:4 * rounds]:
         run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", checkout], stdout=subprocess.PIPE,
+                              "--one", *args], stdout=subprocess.PIPE,
                              text=True, check=True)
         print(run.stdout.strip().splitlines()[-1], flush=True)
     print(subprocess.run(

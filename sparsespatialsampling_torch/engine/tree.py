@@ -1,15 +1,27 @@
 """Metric-driven quadtree/octree refinement engine on torch.
 
-Port of the JAX package's ``engine/tree.py`` with its per-iteration host
-loop (the path ``S3_TPU_DEVICE_LOOP=0`` selects there).  Cells live in
-flat host arrays keyed by (level, integer lattice coordinates); creation
-index is the tie-break of every selection.  The host drives the epochs —
-the stopping rule is sequential — and each epoch's numerics run on the
-device in one fused function (:meth:`SamplingTree._epoch`): query centres
-of every new cell and its 2^d prospective children, exact kNN (the grid
-through the ``topk_smallest`` kernel, or the full scan on small clouds),
-IDW prediction, the gain formula and geometry validity, returned as one
-``[M, 4]`` f32 array (gain, metric, invalid, bad).
+Port of the JAX package's ``engine/tree.py``.  Cells live in flat host
+arrays keyed by (level, integer lattice coordinates); creation index is
+the tie-break of every selection.  Each epoch's numerics run on the
+device in one fused function (:meth:`SamplingTree._epoch_core`): query
+centres of every new cell and its 2^d prospective children, exact kNN
+(the grid through the ``topk_smallest`` kernel, or the full scan on small
+clouds), IDW prediction, the gain formula and geometry validity, returned
+as one ``[M, 4]`` f32 array (gain, metric, invalid, bad).
+
+The adaptive iterations take one of two routes, as in the JAX package:
+
+- the device-resident loop (``SamplingTree.DEVICE_LOOP``, on by default,
+  the JAX package's ``S3_TPU_DEVICE_LOOP=1``): windows of iterations whose
+  ramp, gain selection, 2:1 closure, split, epoch and stop test run on
+  the device over fixed shapes (``device_loop.py``); the host reads one
+  small row per iteration and the new cells once per window.  It runs on
+  the dilated grid layout or the full-scan core, without geometries above
+  ``_FUSED_GEO_BYTES``;
+- the per-iteration host loop (``S3_TPU_DEVICE_LOOP=0`` there): the host
+  selects, expands and splits, and an epoch runs per iteration.  It runs
+  where the loop is ineligible or switched off, and for one iteration
+  where a window could not start one (a guard, the level cap).
 
 A grid query that is not provably exact is answered again inside the
 epoch, as in the JAX package's ``fn_grid_dil``: over the blocked radius-4
@@ -19,9 +31,11 @@ the full scan for up to 1,024 leftover rows (the rescue).  Cells still
 their cells, then the full scan.  Every route emits the canonical
 ``(sq, idx)`` order with plain f32 distances, so which one answers a query
 never changes a cell.  Gains and metrics are computed in f32 on the device
-and kept in f64 on the host, where the top-k selection runs (gain
-descending, creation index ascending).  Levels above 22 (beyond exact f32
-lattice centres) take the f64 host path.
+and kept in f64 on the host.  The top-k selection takes gain descending,
+creation index ascending: on the host in the host loop, on the device (a
+stable sort of the f32 gains) in the device loop, whose captured metric
+and stop test are f32 as the JAX package's loop has them.  Levels above
+22 (beyond exact f32 lattice centres) take the f64 host path.
 
 Geometry validity outside the epochs (the uniform sweeps' removal and the
 geometry refinement) is tested on corner nodes built in f32 on the device,
@@ -36,7 +50,8 @@ above the table budget, which they test by that host route.
 
 With ``max_delta_level`` every refinement keeps the 2:1 balance: a cell is
 split only together with each coarser leaf that touches it by a face, an
-edge or a corner, transitively (:meth:`SamplingTree._expand_delta_level`).
+edge or a corner, transitively (:meth:`SamplingTree._expand_delta_level`
+on the host, ``device_loop._mdl_expand`` in the device loop).
 """
 import logging
 from functools import reduce
@@ -51,6 +66,9 @@ from .._device import resolve_device
 from ..ops import morton
 from ..ops.knn import (KNNIndex, _blocked_topk, _dilated_topk, _fma, _idw,
                        _rowsum, _search, _weighted_sum)
+from .device_loop import (WHY_BAD, WHY_BUDGET, WHY_FILL, WHY_LEVEL, WHY_MDL,
+                          _bucket, _first_rows, loop_body, loop_params,
+                          may_run)
 
 logger = logging.getLogger(__name__)
 
@@ -90,6 +108,40 @@ _PRE_SELECT_TYPES = ("STL", "coord_2D")
 # out of compiled programs; here it keeps the JAX package's node sets,
 # which decide flags at ulp distance)
 _FUSED_GEO_BYTES = 16 * 2 ** 20
+# narrowest selection of the device-resident loop, in cells an iteration
+_LOOP_MIN_WIDTH = 8
+# most ring rows an epoch of the device-resident loop tries (bad queries
+# beyond them end the window and go to the host escalation)
+_LOOP_RING_ROWS = 8192
+# why a window ended (``epoch_stats["window_exits"]``): the stop test, a
+# full window, or the causes of ``device_loop.WHY_*``
+_EXITS = ("stop", "window_full", "bad_rows", "budget", "mdl", "level_cap",
+          "fill")
+_WHY_EXIT = {WHY_BAD: "bad_rows", WHY_BUDGET: "budget", WHY_MDL: "mdl",
+             WHY_LEVEL: "level_cap", WHY_FILL: "fill"}
+# why a host iteration ran although the device loop was eligible
+# (``epoch_stats["host_fallback"]``): a window ran none on a guard, at the
+# level cap, or because its f32 stop test stopped where the host's f64
+# one goes on; or the loop's budget outgrew its epoch blocks
+_FALLBACKS = ("guard", "level_cap", "stop_test", "disabled")
+
+
+def _loop_rows(n: int, minimum: int, most: int) -> int:
+    """Rows for ``n`` bad queries in a window's epochs: a power of two of
+    at least ``minimum`` and at most ``most``; none for none."""
+    return min(most, _bucket(n, minimum=minimum)) if n else 0
+
+
+def _ring_plan(n: int) -> list:
+    """Ring pass sizes covering ``n`` rows: the ``_RING_PLAN`` pass, then
+    batches of ``_RING_LOOP_ROWS``."""
+    ((size, _),) = _RING_PLAN
+    plan = []
+    while n > 0:
+        plan.append(min(size, n))
+        n -= size
+        size = _RING_LOOP_ROWS
+    return plan
 
 
 def _cell_size(width, level):
@@ -114,12 +166,51 @@ def _corner_nodes_f32(coords, level, lo, width, offsets):
                 lo)
 
 
+class _Reader:
+    """Small device rows read back behind the enqueue: on the card a row
+    is copied into pinned host memory behind an event, so the host goes
+    on enqueueing until it waits for that event.  ``reads`` counts the
+    reads the host waited for."""
+
+    def __init__(self, device):
+        self._cuda = device.type == "cuda"
+        self.reads = 0
+
+    def post(self, row: torch.Tensor):
+        if not self._cuda:
+            return row.clone()
+        host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+        host.copy_(row, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(row.device))
+        return host, event
+
+    def wait(self, posted) -> list:
+        self.reads += 1
+        if not self._cuda:
+            return posted.tolist()
+        host, event = posted
+        event.synchronize()
+        return host.tolist()
+
+
 class SamplingTree:
     """Generate a metric-based adaptive grid from a CFD point cloud.
 
     Constructor mirrors the JAX package's ``SamplingTree`` (reference
     ``s_cube.py:87-90``) without its process-pool switch; ``device=None``
     means the card."""
+
+    # the device-resident adaptive loop, the JAX package's default route
+    # (its ``S3_TPU_DEVICE_LOOP``); False runs every adaptive iteration on
+    # the host
+    DEVICE_LOOP = True
+    # iterations a window may run (4x that for budgets of at most 512
+    # children an iteration)
+    _DEVICE_LOOP_ITERS = 64
+    # rounds of the in-loop 2:1 closure; a deeper chain guard-exits to the
+    # host's general walk
+    _MDL_ROUNDS = 4
 
     def __init__(self, vertices, target, geometry_obj: list,
                  n_cells: int = None, uniform_level: int = 5,
@@ -195,15 +286,33 @@ class SamplingTree:
         # passes; cells that left their epoch still bad, and those of them
         # the host ring left to the full scan; queries the in-epoch ring
         # and the in-epoch full-scan rescue answered; wall seconds of all
-        # epochs and of the host escalation
+        # epochs and of the host escalation.  The device-resident loop's
+        # windows: how many, the iterations they ran, why each ended,
+        # the host iterations run because a window could not start one,
+        # state uploads and rows scattered on re-entry, and the reads back
+        # to the host that ``_device_adaptive_call`` made
         self._epoch_stats = {"queries": 0, "n_calls_main": 0,
                              "n_calls_ring": 0, "n_calls_full": 0,
                              "n_bad_cells": 0, "full_scan_cells": 0,
                              "ring_queries": 0, "rescued_queries": 0,
-                             "wall_s": 0.0, "t_retry_s": 0.0}
+                             "wall_s": 0.0, "t_retry_s": 0.0,
+                             "windows": 0, "window_iters": 0,
+                             "window_exits": dict.fromkeys(_EXITS, 0),
+                             "host_fallback": dict.fromkeys(_FALLBACKS, 0),
+                             "state_uploads": 0, "rows_reuploaded": 0,
+                             "d2h_syncs": 0}
         # the in-epoch full-scan rescue starts off and turns on at the
         # first cell escalation (the JAX package's default "auto" mode)
         self._rescue_active = False
+        # the device loop: off for good once its budget outgrows the
+        # epoch blocks; its state after a window (for a cheap re-entry);
+        # the ring rows and rescue rows of each of a window's epochs,
+        # sized from the bad queries the epochs before it met (none until
+        # an epoch meets one)
+        self._device_loop_disabled = False
+        self._dev_state = None
+        self._loop_ring_rows = 0
+        self._loop_rescue_rows = 0
 
         self.all_nodes = None
         self.all_centers = None
@@ -240,6 +349,13 @@ class SamplingTree:
                                        device=dev)
         self._shift_t = torch.tensor(self._knn._shift, dtype=torch.float32,
                                      device=dev)
+        # the device loop's integer child offsets and the 3^d - 1
+        # neighbour directions of its 2:1 closure
+        self._offsets_i = torch.tensor(self._offsets, device=dev)
+        nbdirs = np.stack(np.meshgrid(*([np.array([-1, 0, 1])] * d),
+                                      indexing="ij"), axis=-1).reshape(-1, d)
+        self._nbdirs_i = torch.tensor(nbdirs[(nbdirs != 0).any(axis=1)],
+                                      dtype=torch.int64, device=dev)
 
         self._target_norm = float(np.linalg.norm(target))
         self._print_settings()
@@ -361,14 +477,46 @@ class SamplingTree:
 
     def _epoch(self, idx: np.ndarray, mode: str = "grid") -> np.ndarray:
         """One fused epoch pass over cells ``idx`` → ``[M, 4]`` f32 (gain,
-        metric, invalid, bad) on the host.  A cell is ``bad`` when one of
-        its queries is not provably exact.
+        metric, invalid, bad) on the host (:meth:`_epoch_core`), its ring
+        and rescue sized to the bad queries it finds.  Geometries whose
+        tables exceed ``_FUSED_GEO_BYTES`` are tested by the JAX package's
+        host-merged route (its ``_host_geo_validity``): host-built nodes
+        behind the box."""
+        coords, level = self._cells_on_device(idx)
+        huge = [g for g in self._geometry if _huge(g)]
+        host_invalid = (torch.from_numpy(self._cell_flags_host(
+            idx, huge, False)).to(self.device) if huge else None)
+        out, counts = self._epoch_core(coords, level, mode, host_invalid)
+        st = self._epoch_stats
+        st["queries"] += int(idx.size) * (1 + 2 ** self._n_dimensions)
+        counts = counts.tolist()
+        st["ring_queries"] += counts[1]
+        st["rescued_queries"] += counts[3]
+        if counts[0]:
+            # the device loop's ring starts at the JAX package's first pass
+            self._loop_ring_rows = max(self._loop_ring_rows,
+                                       _RING_PLAN[0][0])
+        return out.cpu().numpy()
+
+    def _epoch_core(self, coords, level, mode: str, host_invalid=None,
+                    slot=None, ring_plan=None, rescue_rows=None):
+        """The fused epoch on the device: ``([M, 4] f32 (gain, metric,
+        invalid, bad), [4] int64 counts)`` for cells given as f32 lattice
+        ``coords [M, d]`` and ``level [M]``.  The counts are the bad
+        queries before the ring, those the ring proved exact, those it
+        tried and could not, and those the rescue answered.  A cell is
+        ``bad`` when one of its queries is not provably exact.
 
         - ``"grid"`` (the JAX package's ``fn_grid_dil``): the dilated
           query, or the blocked one at radius 1 where the index has no
           dilated layout; then the ring over the bad queries of valid cells
           (invalid cells are removed regardless, so their queries are never
-          retried), then the full-scan rescue once it is active.
+          retried), then the full-scan rescue.  The ring's pass sizes are
+          ``ring_plan`` and the rescue's rows ``rescue_rows``; left None,
+          they cover every bad query (one read of their count each), the
+          rescue only once it is active.  With both given the pass reads
+          nothing back, as the device-resident loop needs; ``slot`` then
+          marks the cells that exist (the others' queries are never bad).
         - ``"ring"`` (``fn_grid_ring``): every query over the blocked
           radius-4 neighbourhood, for the host escalation.
         - ``"full"``: the exact full scan, never bad.
@@ -379,19 +527,13 @@ class SamplingTree:
         knn = self._knn
         k = self._n_neighbors
         n_children = 1 + 2 ** self._n_dimensions
-        coords, level = self._cells_on_device(idx)
         queries = self._query_centers(coords, level)
         invalid = self._invalid_on_device(
             coords, level, [g for g in self._geometry if not _huge(g)])
-        huge = [g for g in self._geometry if _huge(g)]
-        if huge:
-            # the JAX package's host-merged validity (its
-            # ``_host_geo_validity``): host-built nodes behind the box
-            invalid |= torch.from_numpy(self._cell_flags_host(
-                idx, huge, False)).to(self.device)
-        st = self._epoch_stats
+        if host_invalid is not None:
+            invalid = invalid | host_invalid
         nq = queries.shape[0]
-        st["queries"] += nq
+        counts = torch.zeros(4, dtype=torch.int64, device=self.device)
         if mode == "full":
             sq, nbr = _search(queries, knn._points, knn._points_sq, k,
                               knn._tile_n, knn._tile_q)
@@ -400,54 +542,62 @@ class SamplingTree:
             sq = torch.zeros((nq, k), dtype=torch.float32, device=self.device)
             nbr = torch.zeros((nq, k), dtype=torch.int64, device=self.device)
             badq = torch.ones(nq, dtype=torch.bool, device=self.device)
-            self._ring(queries, sq, nbr, badq)
+            self._ring(queries, sq, nbr, badq, counts, _ring_plan(nq))
         else:
             if "dil_pts" in knn._grid:
                 sq, nbr, _, ok, _ = _dilated_topk(queries, knn._grid, k)
             else:
                 sq, nbr, ok = _blocked_topk(queries, knn._grid, k)
             badq = ~ok & ~invalid.repeat_interleave(n_children)
-            st["ring_queries"] += self._ring(queries, sq, nbr, badq)
-            if self._rescue_active:
-                st["rescued_queries"] += self._rescue(queries, sq, nbr, badq)
+            if slot is not None:
+                badq &= slot.repeat_interleave(n_children)
+            counts[0] = badq.sum()
+            if ring_plan is None:
+                ring_plan = _ring_plan(int(counts[0]))
+            self._ring(queries, sq, nbr, badq, counts, ring_plan)
+            if rescue_rows is None:
+                rescue_rows = (min(int(badq.sum()), _RESCUE_ROWS)
+                               if self._rescue_active else 0)
+            if rescue_rows:
+                self._rescue(queries, sq, nbr, badq, counts, rescue_rows)
         bad = badq.reshape(-1, n_children).any(dim=1)
         pred = _weighted_sum(_idw(sq), knn._values[nbr])
-        return self._gain_tail(level, pred, invalid, bad).cpu().numpy()
+        return self._gain_tail(level, pred, invalid, bad), counts
 
-    def _ring(self, queries, sq, nbr, badq) -> int:
+    def _ring(self, queries, sq, nbr, badq, counts, plan) -> None:
         """Answer the queries marked in ``badq`` again over the blocked
         radius-4 neighbourhood, in place on ``sq``, ``nbr`` and ``badq``
-        (the JAX package's ring passes, ``fn_grid_dil``): the
-        ``_RING_PLAN`` pass takes the first 256 in ascending index, then
-        batches of ``_RING_LOOP_ROWS`` take the rest.  Each is tried once
-        at radius 4; its answer does not depend on the batch it rides in.
-        A row the ring cannot prove exact keeps the ring's answer and stays
-        marked.  Returns how many rows it proved exact."""
-        rows = torch.nonzero(badq).flatten()
-        ((size, radius),) = _RING_PLAN
-        answered = lo = 0
-        while lo < rows.numel():
-            r = rows[lo:lo + size]
-            rsq, ridx, rok = _blocked_topk(queries[r], self._knn._grid,
-                                           self._n_neighbors, radius)
-            sq[r], nbr[r], badq[r] = rsq, ridx, ~rok
-            answered += int(rok.sum())
-            lo += size
-            size, radius = _RING_LOOP_ROWS, _RING_LOOP_RADIUS
-        return answered
+        (the JAX package's ring passes, ``fn_grid_dil``): each pass of
+        ``plan`` takes the given number of marked rows not yet tried, in
+        ascending index.  Each row is tried once; its answer does not
+        depend on the pass it rides in.  A row the ring cannot prove exact
+        keeps the ring's answer and stays marked.  Adds the rows it proved
+        exact to ``counts[1]`` and those it could not to ``counts[2]``."""
+        tried = torch.zeros_like(badq)
+        for rr in plan:
+            rows, m = _first_rows(badq & ~tried, rr)
+            rsq, ridx, rok = _blocked_topk(queries[rows], self._knn._grid,
+                                           self._n_neighbors,
+                                           _RING_LOOP_RADIUS)
+            sq[rows] = torch.where(m[:, None], rsq, sq[rows])
+            nbr[rows] = torch.where(m[:, None], ridx, nbr[rows])
+            badq[rows] = torch.where(m, ~rok, badq[rows])
+            tried[rows] = tried[rows] | m
+            counts[1] += (m & rok).sum()
+        counts[2] += (tried & badq).sum()
 
-    def _rescue(self, queries, sq, nbr, badq) -> int:
-        """The exact full scan for the first ``_RESCUE_ROWS`` queries still
-        marked in ``badq`` (ascending index), in place, as the JAX package's
-        in-kernel rescue; returns how many it answered."""
-        rows = torch.nonzero(badq).flatten()[:_RESCUE_ROWS]
-        if rows.numel():
-            knn = self._knn
-            sq[rows], nbr[rows] = _search(queries[rows], knn._points,
-                                          knn._points_sq, self._n_neighbors,
-                                          knn._tile_n, knn._tile_q)
-            badq[rows] = False
-        return int(rows.numel())
+    def _rescue(self, queries, sq, nbr, badq, counts, rr: int) -> None:
+        """The exact full scan for the first ``rr`` queries still marked in
+        ``badq`` (ascending index), in place, as the JAX package's
+        in-kernel rescue; adds how many it answered to ``counts[3]``."""
+        knn = self._knn
+        rows, m = _first_rows(badq, rr)
+        rsq, ridx = _search(queries[rows], knn._points, knn._points_sq,
+                            self._n_neighbors, knn._tile_n, knn._tile_q)
+        sq[rows] = torch.where(m[:, None], rsq, sq[rows])
+        nbr[rows] = torch.where(m[:, None], ridx, nbr[rows])
+        badq[rows] = badq[rows] & ~m
+        counts[3] += m.sum()
 
     def _maybe_enable_rescue(self) -> None:
         """At the first cell escalation, turn the in-epoch full-scan rescue
@@ -486,11 +636,8 @@ class SamplingTree:
             self._update_gain(idx)
             self._remove_invalid_cells(idx)
             return
-        d = self._n_dimensions
         grid = self._knn._grid
-        chunk = _EPOCH_CHUNK[d]
-        if d == 3 and grid is not None and grid["C"] <= 32:
-            chunk *= 2
+        chunk = self._chunk()
         t0 = time()
         st = self._epoch_stats
         retry = []
@@ -507,6 +654,14 @@ class SamplingTree:
         if retry:
             self._resolve_retries(np.concatenate(retry), chunk)
         st["wall_s"] += time() - t0
+
+    def _chunk(self) -> int:
+        """Cells per epoch pass: ``_EPOCH_CHUNK``, doubled in 3D when the
+        grid's capacity is at most 32 (half the gather bytes a query)."""
+        d, grid = self._n_dimensions, self._knn._grid
+        if d == 3 and grid is not None and grid["C"] <= 32:
+            return 2 * _EPOCH_CHUNK[d]
+        return _EPOCH_CHUNK[d]
 
     def _resolve_retries(self, retry_idx: np.ndarray, chunk: int) -> None:
         """Host escalation of cells still bad after their epoch (the JAX
@@ -628,12 +783,15 @@ class SamplingTree:
         return (g.check_cells(nodes, False).cpu().numpy(),
                 g.check_cells(nodes, True).cpu().numpy())
 
-    def _captured_metric(self) -> float:
+    def _captured_metric_value(self) -> float:
         """Captured fraction ||metric at alive leaf centres||₂ / ||target||₂
-        (per-leaf predictions are cached at creation)."""
+        (per-leaf predictions are cached at creation), in f64."""
         alive = self._alive_idx()
-        ratio = float(np.sqrt(np.square(self._metric_arr[alive]).sum())
-                      / self._target_norm)
+        return float(np.sqrt(np.square(self._metric_arr[alive]).sum())
+                     / self._target_norm)
+
+    def _captured_metric(self) -> float:
+        ratio = self._captured_metric_value()
         self._metric.append(ratio)
         return ratio
 
@@ -777,6 +935,299 @@ class SamplingTree:
         at_thr = np.nonzero(g == thr)[0][:need]  # ascending index order
         return alive[np.concatenate([above, at_thr])]
 
+    # ------------------------------------------------------------------ #
+    # device-resident adaptive loop                                      #
+    # ------------------------------------------------------------------ #
+    def _adaptive_device_eligible(self) -> bool:
+        """The JAX package's condition (its ``_adaptive_device_eligible``):
+        the dilated grid layout or no grid (the full-scan core), no
+        geometry above ``_FUSED_GEO_BYTES`` (its validity is merged on the
+        host after each epoch, which a window never sees), and the loop
+        neither switched off nor disabled."""
+        grid = self._knn._grid
+        return (self.DEVICE_LOOP and not self._device_loop_disabled
+                and (grid is None or "dil_pts" in grid)
+                and not any(_huge(g) for g in self._geometry))
+
+    def _device_loop_kmax(self) -> int:
+        """Upper bound of the per-iteration budget over the run (the
+        loop's selection width; the budget masks the rest).  The ramp is
+        linear in the captured metric, so its extremes lie at the ends of
+        its range; 1.05 covers an over-approximated metric.  A power of
+        two at least ``_LOOP_MIN_WIDTH`` (the JAX package rounds up to 64
+        to share compiled loops; every slot costs an epoch row here)."""
+        start, end = self._cells_per_iter_start, self._cells_per_iter_end
+        if self._n_cells_max is not None:
+            return _bucket(max(int(start), 1), minimum=_LOOP_MIN_WIDTH)
+        m0 = self._metric[0] if self._metric else 0.0
+        delta_x = self._min_metric - m0
+        vals = [float(start)]
+        if abs(delta_x) > 1e-12:
+            for cx in (m0, 1.05):
+                vals.append(start - (start - end) / delta_x * cx)
+        return _bucket(max(int(max(vals)), 1), minimum=_LOOP_MIN_WIDTH)
+
+    def _device_adaptive_call(self):
+        """One window of adaptive iterations on the device (the JAX
+        package's ``_device_adaptive_call``): upload the state (on
+        re-entry only the rows the host escalation corrected), run the
+        iterations, read back what the host keeps, and escalate the cells
+        whose kNN the loop could not prove exact.  Returns ``(iterations
+        run, cause)``, the cause (of ``_FALLBACKS``) naming why a window
+        ran none."""
+        d = self._n_dimensions
+        n_ch = 2 ** d
+        mdl = self._max_delta_level
+        metric_mode = self._n_cells_max is None
+        k_max = self._device_loop_kmax()
+        # the 2:1 closure adds coarser neighbours to the budgeted top-k:
+        # twice its width (a larger closure guards to the host's walk)
+        k_sel = 2 * k_max if mdl else k_max
+        # cells per epoch block, the JAX package's size: the host's chunk
+        # doubled, or kept in 3D at a grid capacity above 32; a budget of
+        # more than two blocks an iteration stays on the host for good
+        grid = self._knn._grid
+        block = 2 * _EPOCH_CHUNK[d]
+        if d == 3 and grid is not None and grid["C"] > 32:
+            block = _EPOCH_CHUNK[d]
+        if k_sel * n_ch > 2 * block:
+            logger.info(f"Device adaptive loop disabled: a budget of {k_sel} "
+                        f"cells an iteration exceeds two epoch blocks.")
+            self._device_loop_disabled = True
+            return 0, "disabled"
+        # a selection at the f32 level cap would guard at once
+        if self._current_max_level + 1 > _F32_LEVEL_CAP:
+            sel = self._select_top_k(min(self._cells_per_iter,
+                                         self._n_cells))
+            if (sel.size and int(self._level[sel].max()) + 1
+                    > _F32_LEVEL_CAP):
+                return 0, "level_cap"
+        iters, cap = self._window_shape(k_sel * n_ch)
+        n0 = self._n_cells
+        t0 = time()
+        s = self._window_state(cap, iters)
+        vals = torch.tensor(
+            [self._min_metric or 0.0, self._relTol, self._reach_at_least,
+             self._n_cells_max or 0, self._cells_per_iter_start,
+             self._cells_per_iter_end, self._target_norm],
+            dtype=torch.float32).to(self.device)
+        p = loop_params(cap, k_max, k_sel, iters, d, metric_mode, mdl,
+                        _F32_LEVEL_CAP, self._MDL_ROUNDS, self._offsets_i,
+                        self._nbdirs_i, dict(zip(
+                            ("min_metric", "relTol", "reach", "ncmax",
+                             "cps_start", "cps_end", "tnorm"), vals)))
+        reader = _Reader(self.device)
+        ran, fill, why = self._run_window(
+            s, p, self._loop_epoch(block), reader)
+        retry = self._window_readback(s, n0, fill, ran, reader)
+
+        st = self._epoch_stats
+        st["windows"] += 1
+        st["window_iters"] += ran
+        st["n_calls_main"] += 1
+        st["queries"] += (fill - n0) * (1 + n_ch)
+        st["d2h_syncs"] += reader.reads
+        exits = [name for bit, name in _WHY_EXIT.items() if why & bit]
+        for name in exits or ["window_full" if ran == iters else "stop"]:
+            st["window_exits"][name] += 1
+        st["wall_s"] += time() - t0
+        # between windows the host changes only the escalated rows; any
+        # other change (a host iteration, the geometry phase) changes the
+        # cell count and so discards this state
+        self._dev_state = {"cap": cap, "fill": fill, "dirty": retry,
+                           "arrays": {k: s[k] for k in ("coords", "level",
+                                                        "alive", "gain",
+                                                        "metric")}}
+        if retry.size:
+            self._resolve_retries(retry, self._chunk())
+            if metric_mode:
+                # the window's last captured metric saw the cells' ring
+                # answers; the host's sees their exact ones
+                self._metric[-1] = self._captured_metric_value()
+        if ran:
+            return ran, None
+        return 0, ("level_cap" if why & WHY_LEVEL else
+                   "guard" if why else "stop_test")
+
+    def _window_shape(self, width: int):
+        """``(iterations, state rows)`` of a window whose iterations split
+        ``width`` cells at most (the JAX package's sizes: they choose
+        a route, never a cell).  With ``n_cells_max`` the iterations left
+        are predictable; in metric mode the state holds the expected
+        growth and the fill guard ends a window that outgrows it."""
+        n0 = self._n_cells
+        iters = self._DEVICE_LOOP_ITERS
+        if self._n_cells_max is not None:
+            # each iteration adds at most cells_per_iter·(2^d − 1) leaves
+            est = -(-max(self._n_cells_max - n0, 1) // max(
+                self._cells_per_iter * (2 ** self._n_dimensions - 1), 1))
+            iters = min(iters, max(8, 1 << int(est + 1).bit_length()))
+            growth = iters * width
+        elif width <= 512:
+            iters *= 4
+            growth = iters * width
+        else:
+            floor = (8 if self._max_delta_level else 16) * width
+            growth = min(iters * width, max(8 * n0, floor))
+        need = n0 + growth + 1
+        cap = max(4096, 1 << (need - 1).bit_length())
+        cache = self._dev_state
+        if cache is not None and cache["fill"] == n0 and cache["cap"] >= need:
+            # a re-entry's scatter is cheaper than a smaller upload
+            cap = cache["cap"]
+        return iters, cap
+
+    def _window_state(self, cap: int, iters: int) -> dict:
+        """The loop state on the device: the cell rows (uploaded in one
+        packed copy, or on re-entry the previous window's, with the rows
+        the host escalation corrected scattered in), then the window's
+        series and scalars."""
+        dev, d, n0 = self.device, self._n_dimensions, self._n_cells
+        st = self._epoch_stats
+        cache = self._dev_state
+        if cache is not None and cache["cap"] == cap and cache["fill"] == n0:
+            arrays = cache["arrays"]
+            dirty = cache["dirty"]
+            if dirty.size:
+                rows = torch.from_numpy(dirty).to(dev)
+                gm = torch.from_numpy(np.stack(
+                    [self._gain[dirty], self._metric_arr[dirty]]).astype(
+                        np.float32)).to(dev)
+                arrays["gain"][rows] = gm[0]
+                arrays["metric"][rows] = gm[1]
+                arrays["alive"][rows] = torch.from_numpy(
+                    self._alive[dirty]).to(dev)
+                st["rows_reuploaded"] += int(dirty.size)
+        else:
+            buf = np.zeros((n0, d + 4), dtype=np.int32)
+            buf[:, :d] = self._coords[:n0]
+            buf[:, d] = self._level[:n0]
+            buf[:, d + 1] = self._gain[:n0].astype(np.float32).view(np.int32)
+            buf[:, d + 2] = self._metric_arr[:n0].astype(
+                np.float32).view(np.int32)
+            buf[:, d + 3] = self._alive[:n0]
+            t = torch.from_numpy(buf).to(dev)
+            arrays = {
+                "coords": torch.zeros((cap + 1, d), dtype=torch.int64,
+                                      device=dev),
+                "level": torch.zeros(cap + 1, dtype=torch.int64, device=dev),
+                "gain": torch.zeros(cap + 1, dtype=torch.float32, device=dev),
+                "metric": torch.zeros(cap + 1, dtype=torch.float32,
+                                      device=dev),
+                "alive": torch.zeros(cap + 1, dtype=torch.bool, device=dev)}
+            arrays["coords"][:n0] = t[:, :d]
+            arrays["level"][:n0] = t[:, d]
+            arrays["gain"][:n0] = t[:, d + 1].contiguous().view(torch.float32)
+            arrays["metric"][:n0] = t[:, d + 2].contiguous().view(
+                torch.float32)
+            arrays["alive"][:n0] = t[:, d + 3] != 0
+            st["state_uploads"] += 1
+        m = self._metric
+        ints = torch.tensor([n0, 0, int(self._alive[:n0].sum()),
+                             self._cells_per_iter, len(m), 0,
+                             self._current_max_level]).to(dev)
+        floats = torch.tensor(
+            [self._cells_per_iter_last, m[0] if m else 0.0,
+             m[-2] if len(m) > 1 else np.inf, m[-1] if m else 0.0],
+            dtype=torch.float32).to(dev)
+        s = dict(arrays)
+        s.update(zip(("fill", "it", "n_alive", "cpi", "m_count", "why",
+                      "maxlev"), ints))
+        s.update(zip(("cpi_last", "m_first", "m_prev", "m_last"), floats))
+        s.update(bad=torch.zeros(cap + 1, dtype=torch.bool, device=dev),
+                 flag=torch.zeros((), dtype=torch.bool, device=dev),
+                 ms=torch.zeros(iters + 1, dtype=torch.float32, device=dev),
+                 ns=torch.zeros(iters + 1, dtype=torch.int64, device=dev),
+                 nbq=torch.zeros((iters + 1, 4), dtype=torch.int64,
+                                 device=dev))
+        return s
+
+    def _loop_epoch(self, block: int):
+        """The epoch of a window's iterations: :meth:`_epoch_core` over
+        blocks of ``block`` cells with the ring and rescue sized from the
+        previous window (nothing read back); returns the packed output and
+        ``[bad queries before the ring, ring rows left unproven]``."""
+        grid = self._knn._grid
+        mode = "full" if grid is None else "grid"
+        plan = _ring_plan(self._loop_ring_rows) if grid is not None else []
+        rescue = self._loop_rescue_rows
+
+        def epoch(coords, level, slot):
+            outs, counts = [], 0
+            for lo in range(0, coords.shape[0], block):
+                sl = slice(lo, lo + block)
+                out, c = self._epoch_core(coords[sl], level[sl], mode,
+                                          slot=slot[sl], ring_plan=plan,
+                                          rescue_rows=rescue)
+                outs.append(out)
+                counts = counts + c
+            return torch.cat(outs), counts
+        return epoch
+
+    @staticmethod
+    def _run_window(s: dict, p, epoch, reader):
+        """Enqueue the window's iterations one ahead of the host's
+        knowledge: iteration t's ``[may run, it, fill, why]`` row is
+        waited for after iteration t + 1 is enqueued, which runs as a
+        no-op where t was the last.  Returns ``(it, fill, why)``."""
+        prev = None
+        for _ in range(p.iters + 1):
+            loop_body(s, p, epoch)
+            cur = reader.post(torch.stack([may_run(s, p).long(), s["it"],
+                                           s["fill"], s["why"]]))
+            if prev is not None:
+                go, it, fill, why = reader.wait(prev)
+                if not go:
+                    return it, fill, why
+            prev = cur
+        return tuple(reader.wait(prev)[1:])
+
+    def _window_readback(self, s: dict, n0: int, fill: int, ran: int,
+                         reader) -> np.ndarray:
+        """One packed read of what the host keeps after a window: the
+        alive and bad flags, the new rows (coords, levels, gains,
+        metrics), the per-iteration series and the running scalars.
+        Updates the host state; returns the bad rows."""
+        d, i32 = self._n_dimensions, torch.int32
+        m = fill - n0
+        parts = [s["alive"][:fill], s["bad"][:fill],
+                 s["coords"][n0:fill].reshape(-1), s["level"][n0:fill],
+                 s["gain"][n0:fill].view(i32), s["metric"][n0:fill].view(i32),
+                 s["ms"][:ran].view(i32), s["ns"][:ran],
+                 s["nbq"][:ran].reshape(-1),
+                 torch.stack([s["maxlev"], s["cpi"]]),
+                 s["cpi_last"].reshape(1).view(i32)]
+        buf = torch.cat([x.to(i32) for x in parts]).cpu().numpy()
+        reader.reads += 1
+        sizes = [fill, fill, m * d, m, m, m, ran, ran, 4 * ran, 2]
+        (alive, bad, coords, level, gain, metric, ms, ns, nbq, head,
+         cpi_last) = np.split(buf, np.cumsum(sizes))
+        self._grow(m)
+        self._coords[n0:fill] = coords.reshape(m, d)
+        self._level[n0:fill] = level
+        self._gain[n0:fill] = gain.view(np.float32)
+        self._metric_arr[n0:fill] = metric.view(np.float32)
+        self._alive[:fill] = alive != 0
+        self._n_cells = fill
+        self._current_max_level = int(head[0])
+        self._cells_per_iter = int(head[1])
+        self._cells_per_iter_last = float(cpi_last.view(np.float32)[0])
+        if self._n_cells_max is None:
+            self._metric.extend(ms.view(np.float32).astype(float).tolist())
+        self._n_cells_log.extend(ns.tolist())
+        if ran:
+            nbq = nbq.reshape(ran, 4)
+            self._epoch_stats["ring_queries"] += int(nbq[:, 1].sum())
+            self._epoch_stats["rescued_queries"] += int(nbq[:, 3].sum())
+            # the next window's ring tries as many rows as this window's
+            # epochs had bad queries, its rescue as many as the ring left
+            most = nbq.max(axis=0)
+            self._loop_ring_rows = _loop_rows(int(most[0]), _RING_PLAN[0][0],
+                                              _LOOP_RING_ROWS)
+            self._loop_rescue_rows = _loop_rows(int(most[2]), 128,
+                                                _RESCUE_ROWS)
+        return np.nonzero(bad)[0]
+
     def refine(self) -> None:
         """Run the full grid generation (reference ``refine``,
         s_cube.py:563-667)."""
@@ -791,9 +1242,27 @@ class SamplingTree:
 
         logger.info("Adaptive (metric-driven) refinement phase.")
         self._times["t_start_adaptive"] = time()
+        # host iterations: select, 2:1 expansion, split, epochs; windows of
+        # the device-resident loop: their wall and iterations
         asplit = {"t_select": 0.0, "t_expand": 0.0, "t_split": 0.0,
-                  "t_epoch": 0.0, "n_iter": 0}
+                  "t_epoch": 0.0, "t_window": 0.0, "n_iter": 0,
+                  "n_window_iter": 0}
         while self._check_stopping_criteria():
+            if self._adaptive_device_eligible():
+                t0 = time()
+                ran, cause = self._device_adaptive_call()
+                asplit["t_window"] += time() - t0
+                if ran:
+                    iteration_count += ran
+                    asplit["n_iter"] += ran
+                    asplit["n_window_iter"] += ran
+                    logger.info(f"\tDevice loop ran {ran} iterations -> "
+                                f"N_cells = {int(self._alive.sum())}")
+                    continue
+                # the window could not start an iteration: one on the host
+                self._epoch_stats["host_fallback"][cause] += 1
+            elif self.DEVICE_LOOP and self._device_loop_disabled:
+                self._epoch_stats["host_fallback"]["disabled"] += 1
             if self._n_cells_max is None:
                 logger.info(f"\tStarting iteration no. {iteration_count}, "
                             f"captured metric: "
@@ -827,6 +1296,7 @@ class SamplingTree:
 
         if self._n_cells_max is not None:
             self._captured_metric()
+        self._dev_state = None
         self._times["adaptive_split"] = asplit
         logger.info("Finished metric-based refinement.")
 

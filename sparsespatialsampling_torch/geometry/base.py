@@ -22,6 +22,7 @@ Square roots are correctly rounded (:func:`sqrt`).
 """
 import logging
 from abc import ABC, abstractmethod
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -32,18 +33,39 @@ from ..ops.knn import _sqrt as sqrt
 logger = logging.getLogger(__name__)
 
 
+def _host_constant(arr: np.ndarray, dtype: torch.dtype,
+                   recip: bool) -> torch.Tensor:
+    t = torch.as_tensor(arr, dtype=dtype)
+    return torch.ones((), dtype=dtype) / t if recip else t
+
+
+@lru_cache(maxsize=4096)
+def _card_constant(data: bytes, shape: tuple, src: str, dtype: torch.dtype,
+                   device: torch.device, recip: bool) -> torch.Tensor:
+    """A geometry constant on the card, made once: a copy from host memory
+    waits for the device, and the device-resident adaptive loop tests
+    geometries without waiting.  Callers never write to the tensor."""
+    arr = np.frombuffer(data, dtype=src).reshape(shape).copy()
+    return _host_constant(arr, dtype, recip).to(device)
+
+
+def _constant(points: torch.Tensor, value, recip: bool) -> torch.Tensor:
+    arr = np.asarray(value)
+    if points.device.type == "cpu":
+        return _host_constant(arr, points.dtype, recip)
+    return _card_constant(arr.tobytes(), arr.shape, arr.dtype.str,
+                          points.dtype, points.device, recip)
+
+
 def as_like(points: torch.Tensor, value) -> torch.Tensor:
     """``value`` as a tensor of ``points``' dtype on its device."""
-    return torch.as_tensor(np.asarray(value), dtype=points.dtype,
-                           device=points.device)
+    return _constant(points, value, False)
 
 
 def reciprocal(points: torch.Tensor, value) -> torch.Tensor:
     """``1 / value`` rounded once in ``points``' dtype, on its device: what
     XLA folds a division by the constant ``value`` into."""
-    one = torch.ones((), dtype=points.dtype)
-    return (one / torch.as_tensor(np.asarray(value), dtype=points.dtype)
-            ).to(points.device)
+    return _constant(points, value, True)
 
 
 def dot(u, v) -> torch.Tensor:

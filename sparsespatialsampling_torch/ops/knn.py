@@ -200,6 +200,15 @@ def _neighbor_offsets(d: int, radius: int = 1) -> np.ndarray:
                     axis=-1).reshape(-1, d).astype(np.int32)
 
 
+def _neighbor_offsets_on(d: int, radius: int, like: torch.Tensor):
+    """:func:`_neighbor_offsets` built on ``like``'s device in its dtype,
+    with no host-to-device copy (a copy from host memory waits for the
+    device, which a query inside the device-resident loop must not)."""
+    rng = torch.arange(-radius, radius + 1, device=like.device)
+    return torch.stack(torch.meshgrid(*([rng] * d), indexing="ij"),
+                       dim=-1).reshape(-1, d).to(like.dtype)
+
+
 def _plan_grid(points: np.ndarray, n_points: int, occupancy: int,
                capacity: int, shrink_target: int = 32) -> dict:
     """Host bucket-grid plan over a (centred, Morton-sorted) point cloud.
@@ -359,9 +368,8 @@ def _covered_margin_sq(t, cc, dims, inv_h, radius: int):
     oth = _fma(-out, out, _sqsum(out)[:, None])                      # [Q, d]
     dlo = t - torch.clamp_min(cc - radius, 0)
     dhi = torch.minimum(cc + radius + 1, dims) - t
-    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
-    dlo = torch.where(cc - radius <= 0, inf, dlo)
-    dhi = torch.where(cc + radius + 1 >= dims, inf, dhi)
+    dlo = torch.where(cc - radius <= 0, float("inf"), dlo)
+    dhi = torch.where(cc + radius + 1 >= dims, float("inf"), dhi)
     face = torch.minimum(dlo, dhi) * h
     margin_sq = (_fma(face, face, oth) * (1.0 - 1e-4)).min(dim=1).values
     return torch.clamp_max(margin_sq, 9e28)
@@ -388,8 +396,7 @@ def _overflow_contaminated(queries, ovf_nb, sq_max, origin, inv_h, dims,
     that box).  ``ovf_nb [Q, R]`` f32 0/1 flags in `_neighbor_offsets`
     order; the home cell is clamped to the grid like the flags' boxes."""
     d = queries.shape[1]
-    offs = torch.from_numpy(_neighbor_offsets(d, radius).astype(
-        np.float32)).to(queries.device)
+    offs = _neighbor_offsets_on(d, radius, queries)
     h = 1.0 / inv_h
     hi = dims.to(queries.dtype) - 1.0
     cc = torch.minimum(torch.clamp_min(
@@ -436,8 +443,7 @@ def _grid_neighborhood(anchors, n_cells_total: int, origin, inv_h, dims,
     are clamped to their nearest boundary cell.  Returns ``(flat [Q, R]
     int64, margin_sq [Q])``."""
     d = anchors.shape[1]
-    offs = torch.from_numpy(_neighbor_offsets(d, radius).astype(
-        np.int64)).to(anchors.device)
+    offs = _neighbor_offsets_on(d, radius, dims)
     t = (anchors - origin) * inv_h
     cc = torch.minimum(torch.clamp_min(torch.floor(t).long(), 0),
                        dims[None, :] - 1)

@@ -10,10 +10,12 @@
   ``S3_TPU_DIL_MAX_BYTES=0`` there): the same answers and fallback counts.
 - The fused epoch's packed ``[M, 4]`` against the JAX ``_epoch_fn`` on the
   same cells of hole-heavy clouds, with the full-scan rescue off and on.
-- Whole grids against the JAX host loop (``S3_TPU_DEVICE_LOOP=0``): the
+- Whole grids of the port's host loop (``SamplingTree.DEVICE_LOOP =
+  False``) against the JAX host loop (``S3_TPU_DEVICE_LOOP=0``): the
   same cells, iterations and count of cells escalated to the host.
-- The grid through the ring and the rescue against the grid whose bad
-  cells all take the full scan: the same cells and metric trace.
+- The host loop's grid through the ring and the rescue against the grid
+  whose bad cells all take the full scan: the same cells and metric
+  trace.
 """
 from functools import partial
 
@@ -229,6 +231,7 @@ def test_epoch_packed_matches_jax(monkeypatch, hole, rescue):
 def test_grid_matches_jax_host_loop(monkeypatch, hole):
     _grid_pts(monkeypatch)
     monkeypatch.setenv("S3_TPU_DEVICE_LOOP", "0")
+    monkeypatch.setattr(ttree.SamplingTree, "DEVICE_LOOP", False)
     xy, metric, geoms = _hole_case(HOLES[hole])
     jt = jtree.SamplingTree(xy, metric, geoms["jax"], uniform_level=3,
                             n_cells=1500)
@@ -264,6 +267,7 @@ def test_ring_and_rescue_change_no_cell(monkeypatch, hole):
     an earlier pass as filler clears its bad mark, and the row keeps an
     answer that is not provably exact (``ROADMAP.md``, Queue 3)."""
     _grid_pts(monkeypatch)
+    monkeypatch.setattr(ttree.SamplingTree, "DEVICE_LOOP", False)
     spec = HOLES.get(hole, ([0.3, 0.5], 0.25, 0.05))
     xy, metric, geoms = _hole_case(spec)
 

@@ -13,8 +13,9 @@
   table and the holed-sphere contract of ``tests/test_geometry.py`` hold.
 - A geometry pickled through ``torch.save`` carries no tensor and answers
   the same after ``torch.load``.
-- Grids with an STL obstacle equal the JAX package's host loop
-  (``S3_TPU_DEVICE_LOOP=0``, the path the port follows) cell for cell: the
+- Grids of the port's host loop (``SamplingTree.DEVICE_LOOP = False``)
+  with an STL obstacle equal the JAX package's host loop
+  (``S3_TPU_DEVICE_LOOP=0``) cell for cell: the
   360-triangle sphere of ``tests/test_device_loop.py:286-325``, the same
   with ``pre_select_cells`` and the sphere refined to level 5, and the
   huge-table route (``_FUSED_GEO_BYTES = 0`` in both packages).  Each run
@@ -510,6 +511,7 @@ def test_grid_matches_jax(sphere360, monkeypatch, case):
     monkeypatch.setattr(JaxKNN, "GRID_MIN_POINTS", 1000)
     monkeypatch.setattr(TorchKNN, "GRID_MIN_POINTS", 1000)
     monkeypatch.setenv("S3_TPU_DEVICE_LOOP", "0")
+    monkeypatch.setattr(ttree.SamplingTree, "DEVICE_LOOP", False)
     if huge:
         monkeypatch.setattr(jtree, "_FUSED_GEO_BYTES", 0)
         monkeypatch.setattr(ttree, "_FUSED_GEO_BYTES", 0)
