@@ -121,21 +121,37 @@ Phases:
 - ``stl3d``: bench workload 4 (``bench.py:460-498``), not cut: 200 000
   points (seed 2) around the 51 552-triangle sphere STL refined to level 6,
   ``uniform_levels=4``, 40 000 cells, no export; it prints the sign grid's
-  near-band voxels and the near-band points of each winding call, and
-  both kernels must launch; cells and iterations are pinned;
+  near-band voxels and the near-band points of each winding call (those
+  of the geometry phase and of its loop's windows apart), both kernels
+  must launch, the winding kernel inside the geometry loop's windows too,
+  and it is held against its plain version at the largest call of the run
+  and of the windows;
+  cells and iterations are pinned;
 - ``stl_cuda_vs_cpu``: ``mask_points`` and ``check_cells`` (both modes,
   both polarities) of the 5 664-triangle sphere STL on 1 000 000 seeded
   points, on the card and on the CPU, by the exact route and by fast
   winding (``_FW_MIN_TRIS`` lowered), flags equal; then a 30 000-point cut
   of the ``stl3d`` cloud around that sphere refined to level 6, whose
-  grids on the card and on the CPU must be identical.
+  grids on the card and on the CPU must be identical;
+- ``geometry_loop_vs_host``: ``oat2d``, ``stl3d`` and ``mdl2d`` (with
+  ``SamplingTree.GEO_MDL_LOOP``) with the geometry-refinement loop on and
+  then off: pinned grids identical row for row, each route's geometry
+  wall and counters, and the winding kernel against its plain version at
+  the largest call inside ``stl3d``'s geometry loop.
 
 Every grid phase prints its adaptive route (``adaptive_route``: the
 device-resident loop's windows, their iterations, the host iterations and
 why, why each window ended, reads back per iteration, and the other
 synchronising operations inside windows) and fails unless the loop ran at
 least 90 % of the iterations where it is eligible; ``blocked_layout``'s
-run must take the host loop.
+run must take the host loop.  Every grid phase that refines a geometry
+prints its geometry route (``geometry_route``: the geometry loop's
+windows and their levels, the host levels and why, why each window
+ended, reads back, both routes' walls and the other synchronising
+operations inside windows) and fails unless the loop ran windows where
+the JAX package runs it (no 2:1 balance unless ``GEO_MDL_LOOP``) with
+every host level explained by a counted exit, and the host walk alone
+elsewhere.
 
 The launch counters are set to 0 just before each main-path run and read
 just after it; every main-path run must have launched every kernel of its
@@ -417,20 +433,25 @@ def read_counts() -> dict:
 
 
 class WindowTap:
-    """Runs each window of the device loop (``SamplingTree._run_window``)
-    through :meth:`around` while in a ``with`` block."""
+    """Runs each window of a device loop (``SamplingTree.<method>``:
+    ``_run_window``, the adaptive loop's, or ``_run_geometry_window``,
+    the geometry loop's) through :meth:`around` while in a ``with``
+    block."""
+
+    def __init__(self, method: str = "_run_window"):
+        self._method = method
 
     def __enter__(self):
         from sparsespatialsampling_torch.engine.tree import SamplingTree
         self._cls = SamplingTree
-        self._orig = SamplingTree.__dict__["_run_window"]
+        self._orig = SamplingTree.__dict__[self._method]
         run = self._orig.__func__
-        self._cls._run_window = staticmethod(
-            lambda *args: self.around(run, args))
+        setattr(self._cls, self._method,
+                staticmethod(lambda *args: self.around(run, args)))
         return self
 
     def __exit__(self, *exc):
-        self._cls._run_window = self._orig
+        setattr(self._cls, self._method, self._orig)
 
     def around(self, run, args):
         return run(*args)
@@ -444,7 +465,8 @@ class SyncTap(WindowTap):
     ``d2h_syncs``).  A probe read first shows whether the mode warns at
     all (``works``)."""
 
-    def __init__(self):
+    def __init__(self, method: str = "_run_window"):
+        super().__init__(method)
         self.syncs = 0
         self.works = len(self._warned(
             lambda: torch.ones(1, device="cuda").item())[1]) > 0
@@ -542,6 +564,58 @@ def check_route(phase: str, route: dict, device_loop: bool) -> None:
                                and route["host_iterations"] > explained):
         raise AssertionError(f"{phase}: the device loop did not carry the "
                              f"adaptive iterations: {route}")
+
+
+def geometry_route(s3, sync=None) -> dict:
+    """Which route ran the geometry-refinement levels, from the engine's
+    counters: the geometry loop's windows and their levels, the host
+    levels and why, why each window ended, the reads back, the walls of
+    both routes (``geometry_split``) and, with ``sync``, every other
+    synchronising operation inside the windows."""
+    info = s3.data_final_mesh
+    st = info["epoch_stats"]["geometry_route"]
+    out = {"route": ("device_loop" if st["windows"] else "host_walk"
+                     if st["host_levels"] else "none"),
+           "windows": int(st["windows"]),
+           "window_levels": int(st["window_levels"]),
+           "levels_per_window": st["window_levels"] / max(st["windows"], 1),
+           "host_levels": int(st["host_levels"]),
+           "host_fallback": dict(st["host_fallback"]),
+           "window_exits": dict(st["window_exits"]),
+           "d2h_syncs": int(st["d2h_syncs"]),
+           "split_s": {k: float(v) for k, v in info["geometry_split"].items()}}
+    if sync is not None:
+        out["other_syncs_in_windows"] = (sync.syncs if sync.works
+                                         else "not measured")
+    return out
+
+
+def check_geometry_route(phase: str, route: dict, loop: bool) -> None:
+    """Where the JAX package runs its geometry loop (``loop``: the device
+    loop on, no 2:1 balance unless ``GEO_MDL_LOOP``) the loop must have run
+    the levels, or a counted exit explain each host level (a surface wider
+    than the window, the level cap, the 2:1 guard); a phase without a
+    window must owe every host level to a surface wider than the window,
+    which the JAX package's sizes also leave to its host walk.  Elsewhere
+    the host walk alone."""
+    fb = route["host_fallback"]
+    explained = route["host_levels"] == sum(fb.values())
+    if loop:
+        ok = explained and fb["route"] == 0 and (
+            route["windows"] >= 1 or route["host_levels"] == fb["overflow"])
+    else:
+        ok = explained and route["windows"] == 0
+    if not ok:
+        raise AssertionError(f"{phase}: the geometry levels took the wrong "
+                             f"route: {route}")
+
+
+def geometry_loop_on(kw: dict) -> bool:
+    """Whether the JAX package's default geometry route for grid arguments
+    ``kw`` is its loop, with the port's switches as they stand."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    return SamplingTree.DEVICE_LOOP and (not kw.get("max_delta_level")
+                                         or SamplingTree.GEO_MDL_LOOP)
 
 
 def cylinder_wake_3d(n_points: int = 500_000, seed: int = 1):
@@ -690,6 +764,7 @@ def grid_summary(s3, phase_t: dict) -> dict:
                                  info["adaptive_split"].items()
                                  if key.startswith("t_")},
             "adaptive_route": phase_t.get("adaptive_route"),
+            "geometry_route": phase_t.get("geometry_route"),
             "max_level": int(info["max_level"]),
             "wall_s": {"init": phase_t["init"],
                        "knn_build": float(info["t_knn_build"]),
@@ -777,9 +852,12 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
     stable sort.  The adaptive iterations must have taken the device loop
     where ``device_loop`` (and ``SamplingTree.DEVICE_LOOP``) says so, else
     the host loop (:func:`check_route`); the route goes into the walls'
-    ``adaptive_route``."""
+    ``adaptive_route``.  A geometry phase's levels must have taken the JAX
+    package's route (:func:`check_geometry_route`), reported as
+    ``geometry_route``."""
     from sparsespatialsampling_torch.engine.tree import SamplingTree
-    with KernelTap() as tap, SyncTap() as sync:
+    with KernelTap() as tap, SyncTap() as sync, \
+            SyncTap("_run_geometry_window") as geo_sync:
         reset_counts()
         s3, exp, field, t, tree = run_grid(tmp, name, pts, metric,
                                            geometries, export, **kw)
@@ -788,6 +866,9 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
     t["adaptive_route"] = adaptive_route(s3, sync)
     check_route(phase, t["adaptive_route"],
                 device_loop and SamplingTree.DEVICE_LOOP)
+    if s3.data_final_mesh["t_geometry"] is not None:
+        t["geometry_route"] = geometry_route(s3, geo_sync)
+        check_geometry_route(phase, t["geometry_route"], geometry_loop_on(kw))
     missing = [n for n in kernels if counts[n] == 0]
     missing += [s for s in sites if not tap.launches.get(s)]
     if missing:
@@ -1110,20 +1191,28 @@ def phase_large_k() -> dict:
     return out
 
 
-def phase_oat2d(tmp: str) -> tuple:
-    """Bench workload 1 (``bench.py:275-288``, ``:816-837``) end to end:
-    the OAT15 configuration with the bbox pre-select route, 50 snapshots
-    interpolated, then the rank-20 weighted SVD and a DMD."""
+def oat2d_case():
+    """Bench workload 1's grid (``bench.py:275-288``): ``(points, metric,
+    geometries, grid arguments)``."""
     from sparsespatialsampling_torch import (CubeGeometry,
                                              GeometryCoordinates2D)
     xy, metric, poly = synthetic_oat15()
     geometries = [CubeGeometry("domain", True, [-0.5, -0.5], [1.5, 0.5]),
                   GeometryCoordinates2D("airfoil", False, poly,
                                         refine=True)]
+    return xy, metric, geometries, {"uniform_levels": 6,
+                                    "n_cells_max": 25_000,
+                                    "pre_select_cells": True}
+
+
+def phase_oat2d(tmp: str) -> tuple:
+    """Bench workload 1 (``bench.py:275-288``, ``:816-837``) end to end:
+    the OAT15 configuration with the bbox pre-select route, 50 snapshots
+    interpolated, then the rank-20 weighted SVD and a DMD."""
+    xy, metric, geometries, kw = oat2d_case()
     s3, _, field, t, counts, tap, _ = main_path_run(
         "oat2d", tmp, "oat", xy, metric, geometries,
-        export=bench_snapshots(metric), sites=("grid_select", RING),
-        uniform_levels=6, n_cells_max=25_000, pre_select_cells=True)
+        export=bench_snapshots(metric), sites=("grid_select", RING), **kw)
     out = {"phase": "oat2d", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts,
            "launches_per_site": dict(tap.launches)}
@@ -1882,62 +1971,129 @@ def phase_winding_kernel(tmp: str) -> tuple:
              "slices": slices}, meshes)
 
 
-class WindingTap:
-    """Records the near-band batch of each winding-number call during a
-    main-path run and holds the largest one (references, not copies)."""
+class WindingCalls:
+    """The near-band batches of the winding-number calls of one scope, the
+    largest of them (a reference, not a copy) and the launches made."""
 
     def __init__(self):
+        self.sizes, self.largest, self.launches = [], None, 0
+
+    def add(self, points: torch.Tensor) -> None:
+        self.sizes.append(int(points.shape[0]))
+        if self.largest is None or points.shape[0] > self.largest.shape[0]:
+            self.largest = points
+
+
+class WindingTap:
+    """Records the winding-number calls of a main-path run (``all``), of
+    its geometry-refinement phase (``geometry``:
+    ``SamplingTree._refine_geometries``) and of the geometry loop's
+    windows within it (``windows``: ``SamplingTree._run_geometry_window``)."""
+
+    def __init__(self):
+        from sparsespatialsampling_torch.engine.tree import SamplingTree
         from sparsespatialsampling_torch.ops import winding
-        self._winding = winding
+        self._winding, self._tree = winding, SamplingTree
         self._orig = winding.winding_number
-        self.sizes, self.largest = [], None
+        self._orig_geo = SamplingTree._refine_geometries
+        self._orig_win = SamplingTree.__dict__["_run_geometry_window"]
+        self.all, self.geometry, self.windows = (WindingCalls(),
+                                                 WindingCalls(),
+                                                 WindingCalls())
+        self._open = []
+
+    def _scoped(self, calls: WindingCalls, run):
+        """``run`` with the calls made inside it recorded in ``calls``."""
+        def scoped(*args):
+            before = self._winding.launches
+            self._open.append(calls)
+            try:
+                return run(*args)
+            finally:
+                self._open.remove(calls)
+                calls.launches += self._winding.launches - before
+        return scoped
 
     def __enter__(self):
         def tapped(points, v0, v1, v2):
-            self.sizes.append(int(points.shape[0]))
-            if (self.largest is None
-                    or points.shape[0] > self.largest.shape[0]):
-                self.largest = points
+            for calls in [self.all] + self._open:
+                calls.add(points)
             return self._orig(points, v0, v1, v2)
         self._winding.winding_number = tapped
+        self._tree._refine_geometries = self._scoped(self.geometry,
+                                                     self._orig_geo)
+        self._tree._run_geometry_window = staticmethod(
+            self._scoped(self.windows, self._orig_win.__func__))
         return self
 
     def __exit__(self, *exc):
         self._winding.winding_number = self._orig
+        self._tree._refine_geometries = self._orig_geo
+        self._tree._run_geometry_window = self._orig_win
 
 
-def phase_stl3d(tmp: str, stl_path: str) -> tuple:
-    """Bench workload 4 (``bench.py:460-498``), not cut."""
+def size_summary(sizes: list) -> dict:
+    sizes = np.asarray(sizes)
+    return {"calls": int(sizes.size), "total": int(sizes.sum()),
+            "min": int(sizes.min()), "median": float(np.median(sizes)),
+            "max": int(sizes.max())}
+
+
+def stl3d_case(stl_path: str):
+    """Bench workload 4's grid (``bench.py:460-498``): ``(points, metric,
+    geometries, grid arguments)`` and the wall of the STL geometry's
+    build."""
     from sparsespatialsampling_torch import CubeGeometry, GeometrySTL3D
     xyz, metric, bounds = stl_cloud()
     t0 = time.perf_counter()
     stl = GeometrySTL3D("sphere", False, stl_path, refine=True,
                         min_refinement_level=6)
     t_stl = time.perf_counter() - t0
-    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]), stl]
+    return xyz, metric, [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                         stl], {"uniform_levels": 4,
+                                "n_cells_max": 40_000}, t_stl
+
+
+def phase_stl3d(tmp: str, stl_path: str) -> tuple:
+    """Bench workload 4 (``bench.py:460-498``), not cut.  The winding
+    kernel runs in the epochs and inside the geometry loop's windows; it
+    is held against its plain version at the largest call of each."""
+    xyz, metric, geometries, kw, t_stl = stl3d_case(stl_path)
+    stl = geometries[1]
     with WindingTap() as wtap:
         s3, _, _, t, counts, tap, _ = main_path_run(
             "stl3d", tmp, "stl", xyz, metric, geometries,
             sites=("grid_select",), kernels=("topk_smallest", "winding_number"),
-            uniform_levels=4, n_cells_max=40_000)
-    sizes = np.asarray(wtap.sizes)
-    if sizes.size != counts["winding_number"]:
-        raise AssertionError(f"stl3d: {sizes.size} winding calls, "
+            **kw)
+    if len(wtap.all.sizes) != counts["winding_number"]:
+        raise AssertionError(f"stl3d: {len(wtap.all.sizes)} winding calls, "
                              f"{counts['winding_number']} launches")
+    # on the default route the geometry phase's winding calls run inside
+    # the loop's windows
+    if not wtap.windows.launches and geometry_loop_on(kw):
+        raise AssertionError(f"stl3d: the winding kernel launched no time "
+                             f"inside the geometry loop's windows, route "
+                             f"{t['geometry_route']}")
     out = {"phase": "stl3d", "n_points": int(xyz.shape[0]),
            "n_triangles": int(stl.triangles.shape[0]),
            "stl_build_s": t_stl, **grid_summary(s3, t),
            "launches": counts, "launches_per_site": dict(tap.launches),
+           "winding_launches_geometry_phase": wtap.geometry.launches,
+           "winding_launches_geometry_windows": wtap.windows.launches,
            "sign_grid": {"n_near_vox": stl._sg["n_near_vox"],
                          "n_vox": stl._sg["n_vox"]},
-           "near_band_points_per_call": {
-               "calls": int(sizes.size), "total": int(sizes.sum()),
-               "min": int(sizes.min()), "median": float(np.median(sizes)),
-               "max": int(sizes.max())}}
+           "near_band_points_per_call": size_summary(wtap.all.sizes),
+           "near_band_points_per_geometry_call": size_summary(
+               wtap.geometry.sizes)}
     check_expected("stl3d", out)
     out["kernel_at_call_sites"] = check_sites(tap)
-    out["winding_at_largest_call"] = check_winding(wtap.largest,
+    out["winding_at_largest_call"] = check_winding(wtap.all.largest,
                                                    stl.triangles, 4)
+    if wtap.windows.sizes:
+        out["near_band_points_per_window_call"] = size_summary(
+            wtap.windows.sizes)
+        out["winding_at_largest_window_call"] = check_winding(
+            wtap.windows.largest, stl.triangles, 5)
     return out, counts
 
 
@@ -2031,12 +2187,75 @@ def phase_stl_cuda_vs_cpu(tmp: str, stl_path: str, tris: np.ndarray) -> dict:
     return out
 
 
+def grid_rows(s3) -> tuple:
+    """``(levels, centres, iterations, metric trace)`` in row order, which
+    the export's face ids follow."""
+    return (np.asarray(s3.levels).ravel(), np.asarray(s3.centers),
+            s3.data_final_mesh["iterations"],
+            np.asarray(s3.data_final_mesh["metric_per_iter"]))
+
+
+def phase_geometry_loop_vs_host(tmp: str, stl_path: str) -> dict:
+    """``oat2d`` (the polygon on the pre-select route), ``stl3d`` (the STL
+    sphere: the winding kernel inside the loop) and ``mdl2d`` (the 2:1
+    variant, ``GEO_MDL_LOOP``) at their published sizes with the geometry
+    loop on and then off: ``DEVICE_LOOP = False`` for the first two (the
+    JAX package's ``S3_TPU_DEVICE_LOOP=0``, which takes the adaptive host
+    loop too), ``GEO_MDL_LOOP = False`` for ``mdl2d``.  Both grids pinned
+    and identical row for row; each route's geometry wall and counters;
+    the winding kernel against its plain version at the largest call of
+    ``stl3d``'s geometry loop."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    xy, metric, _, geometries, kw = mdl_case(250_000)
+    cases = {"oat2d": (*oat2d_case(), "DEVICE_LOOP"),
+             "stl3d": (*stl3d_case(stl_path)[:4], "DEVICE_LOOP"),
+             "mdl2d": (xy, metric, geometries, kw, "GEO_MDL_LOOP")}
+    out = {"phase": "geometry_loop_vs_host"}
+    for name, (pts, metric, geoms, kw, switch) in cases.items():
+        keys, res = {}, {"switch": switch}
+        for loop in (True, False):
+            route = "geometry_loop" if loop else "host_walk"
+            saved = getattr(SamplingTree, switch)
+            setattr(SamplingTree, switch, loop)
+            try:
+                with WindingTap() as wtap, \
+                        SyncTap("_run_geometry_window") as sync:
+                    s3, _, _, t, _ = run_grid(tmp, f"glh_{name}_{route}",
+                                              pts, metric, geoms, **kw)
+            finally:
+                setattr(SamplingTree, switch, saved)
+            info = s3.data_final_mesh
+            rt = geometry_route(s3, sync)
+            check_geometry_route(f"{name} ({route})", rt, loop)
+            check_expected(name, {"n_cells": int(info["n_cells"]),
+                                  "iterations": int(info["iterations"])})
+            keys[loop] = grid_rows(s3)
+            res[route] = {"wall_s_geometry": float(info["t_geometry"]),
+                          "refine_total_s": t["refine"],
+                          "geometry_route": rt}
+            if loop and wtap.windows.sizes:
+                res[route].update(
+                    winding_launches_geometry_phase=wtap.geometry.launches,
+                    winding_launches_geometry_windows=wtap.windows.launches,
+                    near_band_points_per_window_call=size_summary(
+                        wtap.windows.sizes),
+                    winding_at_largest_window_call=check_winding(
+                        wtap.windows.largest, geoms[1].triangles, 6))
+        res.update(compare_grids(f"{name}: geometry loop and host walk",
+                                 keys[True], keys[False]))
+        res["n_cells"], res["iterations"] = EXPECTED[name]
+        out[name] = res
+    return out
+
+
 def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
     """The ``kernels`` line's entry of ``winding_number``: the top-level
     times are at [1024, 51552], the ``stl3d`` mesh at the JAX package's
     near-band batch; ``cases`` holds every timed shape, the largest
-    near-band batch of the ``stl3d`` run included."""
-    checks = cases + [stl["winding_at_largest_call"]]
+    near-band batches of the ``stl3d`` run and of its geometry loop's
+    windows included."""
+    geo = stl["winding_at_largest_window_call"]
+    checks = cases + [geo, stl["winding_at_largest_call"]]
     timed = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "winding_number", "route": "cuda",
@@ -2046,6 +2265,10 @@ def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
                          "program, not a Pallas kernel",
         "launches": counts_stl["winding_number"],
         "launches_stl3d": counts_stl["winding_number"],
+        "launches_stl3d_geometry_phase": stl[
+            "winding_launches_geometry_phase"],
+        "launches_stl3d_geometry_windows": stl[
+            "winding_launches_geometry_windows"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "flags_differ_far": sum(c["flags_differ_far"] for c in checks),
         "flags_differ_near": sum(c["flags_differ_near"] for c in checks),
@@ -2053,6 +2276,7 @@ def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
         "ops_per_pair": WINDING_OPS_PER_PAIR,
         **{key: cases[0][key] for key in timed},
         "cases": {("stl3d_largest_call" if c is checks[-1] else
+                   "stl3d_largest_geometry_window_call" if c is geo else
                    f"{c['shape'][0]}x{c['shape'][1]}"):
                   {key: c[key] for key in timed}
                   for c in checks if "ms" in c}}
@@ -2112,6 +2336,7 @@ def main() -> int:
         stl, counts_stl = phase_stl3d(tmp, big_path)
         emit(stl)
         emit(phase_stl_cuda_vs_cpu(tmp, small_path, small))
+        emit(phase_geometry_loop_vs_host(tmp, big_path))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

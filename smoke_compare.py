@@ -13,10 +13,12 @@ its pinned grid), then prints one JSON line of their ``refine_total``,
 directory first, e.g. ``git archive <commit> | tar -x -C
 _smoke_checkout/parent``.
 
-The second form runs one checkout's adaptive routes in the same turns:
-the device-resident loop (``SamplingTree.DEVICE_LOOP = True``, the
-default) against the host loop (``False``), over every grid workload with
-a pin (``ROUTE_PHASES``); each run's line also carries its route counters.
+The second form runs one checkout's routes in the same turns: the
+device-resident loops (``SamplingTree.DEVICE_LOOP = True``, the default:
+the adaptive loop and the geometry loop) against the host loop and the
+host's per-level geometry walk (``False``), over every grid workload with
+a pin (``ROUTE_PHASES``); each run's line also carries both routes'
+counters.  Every line carries the geometry phase's wall.
 
 The last line is the card's ``nvidia-smi`` name and power limit.
 """
@@ -33,7 +35,7 @@ ROUTE_PHASES = ("grid3d", "grid2d_metric", "oat2d", "cylinder3d", "mdl2d",
 
 def walls(checkout: str, route: str = None) -> dict:
     """One run's walls, in this process (the child of :func:`main`);
-    ``route`` ("device_loop" or "host_loop") sets the adaptive route."""
+    ``route`` ("device_loop" or "host_loop") sets the routes."""
     checkout = os.path.abspath(checkout)
     sys.path.insert(0, checkout)
     os.chdir(checkout)
@@ -56,10 +58,12 @@ def walls(checkout: str, route: str = None) -> dict:
             d = getattr(chip_smoke, f"phase_{name}")(*args)[0]
             out[name] = {"refine_total": d["wall_s"]["refine_total"],
                          "init": d["wall_s"]["init"],
+                         "geometry": d["wall_s"]["geometry"],
                          "epoch_wall_s": d["epoch_wall_s"]}
             if route is not None:
                 out[name]["adaptive_split_s"] = d["adaptive_split_s"]
                 out[name]["adaptive_route"] = d["adaptive_route"]
+                out[name]["geometry_route"] = d["geometry_route"]
     return out
 
 

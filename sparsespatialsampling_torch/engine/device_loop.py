@@ -1,9 +1,11 @@
-"""Tensor functions of the device-resident adaptive loop.
+"""Tensor functions of the device-resident loops.
 
-Port of the JAX package's device loop (``engine/tree.py:61-215`` and the
-body of ``_build_device_loop``, ``:1913-2100``).  There one
-``lax.while_loop`` runs the adaptive iterations; here :func:`loop_body`
-is one iteration as a plain function of the state and the window's
+Port of the JAX package's device loops (``engine/tree.py:61-215``, the
+body of ``_build_device_loop``, ``:1913-2100``, and that of
+``_build_geometry_loop``, ``:2575-2695``).  There one ``lax.while_loop``
+runs the adaptive iterations, another the geometry-refinement levels;
+here :func:`loop_body` is one iteration and :func:`geometry_level_body`
+one level, each a plain function of the state and the window's
 parameters over fixed shapes.  It reads nothing back: every decision is
 a device value, and an iteration that must not run (a guard fired, the
 stop test said stop, the window is full) runs predicated — every scatter
@@ -20,12 +22,15 @@ iteration to decide whether to enqueue the next.
 - :func:`_mdl_expand`: the transitive 2:1 closure of a selection.
 - :func:`loop_body`: ramp, gain selection, 2:1 closure, guards, split,
   epoch, writes, captured metric and the per-iteration series.
+- :func:`geometry_level_body`: frontier filter or 2:1 closure, level-cap
+  guard, split, the children's (invalid, surface) flags and the next
+  frontier.
 """
 from types import SimpleNamespace
 
 import torch
 
-from ..ops.knn import _sqrt
+from ..ops.knn import _fma, _sqrt
 
 # bits of a coordinate in a packed key: lattice coordinates of levels up
 # to 22 (the loop's level cap) are below 2^22
@@ -40,12 +45,30 @@ WHY_MDL = 2         # the 2:1 closure left the loop's exact case
 WHY_LEVEL = 4       # a child would lie deeper than the f32 level cap
 WHY_FILL = 8        # the children would not fit in the state
 WHY_BAD = 16        # a cell's kNN is not provably exact (host escalation)
+WHY_OVER = 32       # the geometry loop's next frontier outgrew its width
 
 
 def _bucket(n: int, minimum: int = 512) -> int:
     """Round up to a power of two, at least ``minimum`` (bounds the number
     of distinct state and selection widths over a run)."""
     return max(minimum, 1 << int(n - 1).bit_length())
+
+
+def _cell_size(width, level):
+    """f32 cell edge ``width / 2^level``, exact: ``2^level`` is assembled
+    from its exponent bits (XLA's CPU ``exp2`` is off by ulps from level 13
+    on, and the division by a power of two rounds nothing)."""
+    pow2 = ((level.to(torch.int32) + 127) << 23).view(torch.float32)
+    return width / pow2
+
+
+def _corner_nodes_f32(coords, level, lo, width, offsets):
+    """f32 corner nodes ``[M, 2^d, d]`` of lattice cells, ``lo + (coords +
+    offset)·h`` with one rounding (exact lattice while the coordinates stay
+    below 2^23)."""
+    h = _cell_size(width, level)
+    return _fma(coords[:, None, :] + offsets[None, :, :], h[:, None, None],
+                lo)
 
 
 def _pack(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -351,3 +374,102 @@ def loop_body(s: dict, p, epoch) -> None:
     s["ns"][it_w] = n_alive.reshape(1)
     s["nbq"][it_w] = counts.reshape(1, -1)
     s["it"] = s["it"] + (~noop).long()
+
+
+def geometry_params(cap: int, k_geo: int, levels: int, d: int, gmax: int,
+                    mdl: bool, lev_cap: int, rounds: int, offsets, nbdirs,
+                    lo, width, offsets_f) -> SimpleNamespace:
+    """The fixed shapes and constants of one geometry window: ``k_geo``
+    frontier rows, ``levels`` levels at most, the target level ``gmax``;
+    ``lo``, ``width`` and ``offsets_f`` build the f32 corner nodes."""
+    return SimpleNamespace(
+        cap=cap, k_geo=k_geo, levels=levels, d=d, n_ch=2 ** d, gmax=gmax,
+        mdl=mdl, lev_cap=lev_cap, rounds=rounds, offsets=offsets,
+        nbdirs=nbdirs, lo=lo, width=width, offsets_f=offsets_f,
+        ar_ch=torch.arange(2 ** d, device=offsets.device))
+
+
+def geometry_may_run(s: dict, p) -> torch.Tensor:
+    """Whether the next level runs (the JAX loop's ``cond``): below the
+    target level, a frontier left, room in the window and no flag."""
+    return ((s["gcur"] < p.gmax) & (s["n_fr"] > 0) & (s["it"] < p.levels)
+            & ~s["flag"])
+
+
+def geometry_level_body(s: dict, p, check_cells) -> None:
+    """One geometry-refinement level on the state ``s`` (in place), the JAX
+    loop body's arithmetic: the frontier's rows below the target level are
+    split (with the 2:1 balance, the closure of the whole frontier, where a
+    seed at the target level is split only if a probe found it as a
+    coarser neighbour); the children get rows in ascending-parent order,
+    ``2^d`` consecutive rows a parent, as the host's ``_split`` of the
+    sorted parents; ``check_cells`` (the geometry's) tests their f32 corner
+    nodes for removal and for the surface; the surviving surface children
+    are the next frontier.  A level that must not run, or that a guard
+    stops (level cap, the closure's guard), writes the sentinel row
+    ``cap`` only and keeps every scalar; one whose next frontier outgrows
+    ``k_geo`` still completes exactly, and clears ``fr_ok``."""
+    cap, d, n_ch, k_geo = p.cap, p.d, p.n_ch, p.k_geo
+    active = geometry_may_run(s, p)
+    fr = s["fr"]
+    if p.mdl:
+        parents, pvalid, gmdl = _mdl_expand(
+            s["coords"], s["level"], s["alive"], fr, cap, d, k_geo,
+            p.nbdirs, p.rounds, drop_seed_at=p.gmax)
+        why = torch.where(gmdl, WHY_MDL, 0)
+    else:
+        parents = torch.sort(torch.where(
+            (fr != cap) & (s["level"][fr] < p.gmax), fr, cap)).values
+        pvalid = parents < cap
+        why = torch.zeros_like(s["why"])
+    plevel = s["level"][parents]
+    why = why | torch.where(torch.where(pvalid, plevel, 0).max() + 1
+                            > p.lev_cap, WHY_LEVEL, 0)
+    guard = why != 0
+    noop = guard | ~active
+
+    # the split, predicated: a no-op level writes the sentinel row only
+    pvalid = pvalid & ~noop
+    s["alive"].index_fill_(0, torch.where(noop, cap, parents), False)
+    j = torch.cumsum(pvalid.long(), 0) - 1
+    rows_f = torch.where(pvalid[:, None],
+                         s["fill"] + j[:, None] * n_ch + p.ar_ch[None, :],
+                         cap).reshape(-1)
+    child = (s["coords"][parents][:, None, :] * 2
+             + p.offsets[None]).reshape(-1, d)
+    clevel = plevel + 1
+    child_level = clevel.repeat_interleave(n_ch)
+    s["coords"][rows_f] = child
+    s["level"][rows_f] = child_level
+    slot = pvalid.repeat_interleave(n_ch)
+
+    # the flags w.r.t. this geometry only (reference s_cube.py:850) on one
+    # set of nodes; an empty slot is tested on the root cell
+    nodes = _corner_nodes_f32(
+        torch.where(slot[:, None], child, 0).to(torch.float32),
+        torch.where(slot, child_level, 0).to(torch.float32), p.lo, p.width,
+        p.offsets_f)
+    inv = check_cells(nodes, False)
+    surf = check_cells(nodes, True)
+    galive = slot & ~inv
+    s["alive"][rows_f] = galive
+    nxt = galive & surf
+    n_fr2 = nxt.sum()
+    fr2 = torch.sort(torch.where(nxt, rows_f, cap)).values[:k_geo]
+    over = n_fr2 > k_geo
+
+    adv = (~noop).long()
+    # a no-op level writes its parents at the sentinel index
+    s["psel"][_at(torch.where(noop, p.levels, s["it"]))] = parents.reshape(
+        1, -1)
+    s["fill"] = s["fill"] + pvalid.sum() * n_ch
+    s["gcur"] = s["gcur"] + adv
+    s["it"] = s["it"] + adv
+    s["fr"] = torch.where(noop, fr, fr2)
+    s["n_fr"] = torch.where(noop, s["n_fr"], n_fr2)
+    s["fr_ok"] = s["fr_ok"] & ~over
+    s["why"] = s["why"] | torch.where(
+        active, why | torch.where(over, WHY_OVER, 0), 0)
+    s["flag"] = s["flag"] | (active & (guard | over))
+    s["maxlev"] = torch.maximum(s["maxlev"],
+                                torch.where(pvalid, clevel, 0).max())

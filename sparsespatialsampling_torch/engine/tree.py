@@ -23,6 +23,17 @@ The adaptive iterations take one of two routes, as in the JAX package:
   where the loop is ineligible or switched off, and for one iteration
   where a window could not start one (a guard, the level cap).
 
+The geometry refinement after the adaptive phase takes one of two routes,
+as in the JAX package: windows of the device-resident geometry loop
+(``SamplingTree._device_geometry_call``, ``device_loop.geometry_level_body``;
+off with ``DEVICE_LOOP``), up to ``_GEO_LOOP_LEVELS`` levels each, whose
+frontier filter, split, flags and next frontier run on the device and
+whose host reads one small row a level and the new cells once a window;
+or the host's per-level walk, which runs the 2:1 variant unless
+``GEO_MDL_LOOP`` is set, geometries above ``_FUSED_GEO_BYTES``, levels
+above 22 and each level a window could not run.  The loop tests every
+child on device-built nodes, a pre-select geometry's too.
+
 A grid query that is not provably exact is answered again inside the
 epoch, as in the JAX package's ``fn_grid_dil``: over the blocked radius-4
 neighbourhood (the ring), then, once a cell has had to be escalated, by
@@ -67,8 +78,9 @@ from ..ops import morton
 from ..ops.knn import (KNNIndex, _blocked_topk, _dilated_topk, _fma, _idw,
                        _rowsum, _search, _weighted_sum)
 from .device_loop import (WHY_BAD, WHY_BUDGET, WHY_FILL, WHY_LEVEL, WHY_MDL,
-                          _bucket, _first_rows, loop_body, loop_params,
-                          may_run)
+                          WHY_OVER, _bucket, _cell_size, _corner_nodes_f32,
+                          _first_rows, geometry_level_body, geometry_may_run,
+                          geometry_params, loop_body, loop_params, may_run)
 
 logger = logging.getLogger(__name__)
 
@@ -124,6 +136,17 @@ _WHY_EXIT = {WHY_BAD: "bad_rows", WHY_BUDGET: "budget", WHY_MDL: "mdl",
 # level cap, or because its f32 stop test stopped where the host's f64
 # one goes on; or the loop's budget outgrew its epoch blocks
 _FALLBACKS = ("guard", "level_cap", "stop_test", "disabled")
+# why a window of the geometry loop ended (``geometry_route["window_exits"]``):
+# the target level or an empty frontier, a full window, or a cause of
+# ``device_loop.WHY_*``; and why a geometry level ran on the host
+# (``geometry_route["host_fallback"]``): the JAX package's host route (the
+# loop switched off, the 2:1 balance without ``GEO_MDL_LOOP``, tables
+# above ``_FUSED_GEO_BYTES``), a level above the f32 level cap, a surface
+# wider than the window, or the 2:1 closure's guard
+_GEO_EXITS = ("done", "window_full", "overflow", "level_cap", "mdl")
+_GEO_FALLBACKS = ("route", "level_cap", "overflow", "mdl")
+_GEO_WHY_EXIT = {WHY_OVER: "overflow", WHY_LEVEL: "level_cap",
+                 WHY_MDL: "mdl"}
 
 
 def _loop_rows(n: int, minimum: int, most: int) -> int:
@@ -144,26 +167,26 @@ def _ring_plan(n: int) -> list:
     return plan
 
 
-def _cell_size(width, level):
-    """f32 cell edge ``width / 2^level``, exact: ``2^level`` is assembled
-    from its exponent bits (XLA's CPU ``exp2`` is off by ulps from level 13
-    on, and the division by a power of two rounds nothing)."""
-    pow2 = ((level.to(torch.int32) + 127) << 23).view(torch.float32)
-    return width / pow2
-
-
 def _huge(g) -> bool:
     """Whether geometry ``g``'s lookup tables exceed ``_FUSED_GEO_BYTES``."""
     return g.device_table_bytes > _FUSED_GEO_BYTES
 
 
-def _corner_nodes_f32(coords, level, lo, width, offsets):
-    """f32 corner nodes ``[M, 2^d, d]`` of lattice cells, ``lo + (coords +
-    offset)·h`` with one rounding (exact lattice while the coordinates stay
-    below 2^23)."""
-    h = _cell_size(width, level)
-    return _fma(coords[:, None, :] + offsets[None, :, :], h[:, None, None],
-                lo)
+def _enqueue_ahead(step, row, steps: int, reader) -> list:
+    """Run ``step()`` up to ``steps + 1`` times one ahead of the host's
+    knowledge: the row ``row()`` posted after step t is waited for after
+    step t + 1 is enqueued, which runs as a no-op where t was the last
+    (the row's first entry false).  Returns the last row waited for."""
+    prev = None
+    for _ in range(steps + 1):
+        step()
+        cur = reader.post(row())
+        if prev is not None:
+            got = reader.wait(prev)
+            if not got[0]:
+                return got
+        prev = cur
+    return reader.wait(prev)
 
 
 class _Reader:
@@ -211,6 +234,12 @@ class SamplingTree:
     # rounds of the in-loop 2:1 closure; a deeper chain guard-exits to the
     # host's general walk
     _MDL_ROUNDS = 4
+    # the geometry-refinement loop with the 2:1 balance (the JAX package's
+    # ``S3_TPU_GEO_MDL_LOOP``, off there by default on a measured trade-off);
+    # False keeps such runs on the host's per-level walk
+    GEO_MDL_LOOP = False
+    # levels a window of the geometry loop may run
+    _GEO_LOOP_LEVELS = 8
 
     def __init__(self, vertices, target, geometry_obj: list,
                  n_cells: int = None, uniform_level: int = 5,
@@ -281,7 +310,8 @@ class SamplingTree:
                        "t_start_adaptive": 0.0, "t_start_geometry": 0.0,
                        "t_end_geometry": 0.0, "t_start_renumber": 0.0,
                        "t_end_renumber": 0.0, "t_init": 0.0,
-                       "t_knn_build": 0.0}
+                       "t_knn_build": 0.0,
+                       "geometry_split": {"t_window": 0.0, "t_host": 0.0}}
         # epoch accounting: query count; main, host-ring and full-scan
         # passes; cells that left their epoch still bad, and those of them
         # the host ring left to the full scan; queries the in-epoch ring
@@ -290,7 +320,9 @@ class SamplingTree:
         # windows: how many, the iterations they ran, why each ended,
         # the host iterations run because a window could not start one,
         # state uploads and rows scattered on re-entry, and the reads back
-        # to the host that ``_device_adaptive_call`` made
+        # to the host that ``_device_adaptive_call`` made; and the geometry
+        # loop's windows, their levels, the host levels and why, why each
+        # window ended, and the reads back ``_device_geometry_call`` made
         self._epoch_stats = {"queries": 0, "n_calls_main": 0,
                              "n_calls_ring": 0, "n_calls_full": 0,
                              "n_bad_cells": 0, "full_scan_cells": 0,
@@ -300,7 +332,14 @@ class SamplingTree:
                              "window_exits": dict.fromkeys(_EXITS, 0),
                              "host_fallback": dict.fromkeys(_FALLBACKS, 0),
                              "state_uploads": 0, "rows_reuploaded": 0,
-                             "d2h_syncs": 0}
+                             "d2h_syncs": 0,
+                             "geometry_route": {
+                                 "windows": 0, "window_levels": 0,
+                                 "host_levels": 0,
+                                 "window_exits": dict.fromkeys(_GEO_EXITS, 0),
+                                 "host_fallback": dict.fromkeys(
+                                     _GEO_FALLBACKS, 0),
+                                 "d2h_syncs": 0}}
         # the in-epoch full-scan rescue starts off and turns on at the
         # first cell escalation (the JAX package's default "auto" mode)
         self._rescue_active = False
@@ -313,6 +352,8 @@ class SamplingTree:
         self._dev_state = None
         self._loop_ring_rows = 0
         self._loop_rescue_rows = 0
+        # the geometry loop's (k_geo, cap) per geometry, kept for the phase
+        self._geo_loop_shapes = {}
 
         self.all_nodes = None
         self.all_centers = None
@@ -777,6 +818,13 @@ class SamplingTree:
             valid = np.nonzero(~invalid)[0]
             surface[valid] = self._cell_flags(idx[valid], [g], True)
             return invalid, surface
+        return self._geo_flags_device(g, idx)
+
+    def _geo_flags_device(self, g, idx: np.ndarray):
+        """``(invalid, surface)`` of cells ``idx`` w.r.t. geometry ``g`` on
+        one set of device-built f32 corner nodes, whatever its route (the
+        JAX package's ``_geo_refine_flags``, which the geometry loop's
+        frontier recompute calls for every geometry)."""
         coords, level = self._cells_on_device(idx)
         nodes = _corner_nodes_f32(coords, level, self._lo_t, self._width_t,
                                   self._offsets_t)
@@ -1167,20 +1215,12 @@ class SamplingTree:
     @staticmethod
     def _run_window(s: dict, p, epoch, reader):
         """Enqueue the window's iterations one ahead of the host's
-        knowledge: iteration t's ``[may run, it, fill, why]`` row is
-        waited for after iteration t + 1 is enqueued, which runs as a
-        no-op where t was the last.  Returns ``(it, fill, why)``."""
-        prev = None
-        for _ in range(p.iters + 1):
-            loop_body(s, p, epoch)
-            cur = reader.post(torch.stack([may_run(s, p).long(), s["it"],
-                                           s["fill"], s["why"]]))
-            if prev is not None:
-                go, it, fill, why = reader.wait(prev)
-                if not go:
-                    return it, fill, why
-            prev = cur
-        return tuple(reader.wait(prev)[1:])
+        knowledge (:func:`_enqueue_ahead`) on ``[may run, it, fill, why]``
+        rows.  Returns ``(it, fill, why)``."""
+        return tuple(_enqueue_ahead(
+            lambda: loop_body(s, p, epoch),
+            lambda: torch.stack([may_run(s, p).long(), s["it"], s["fill"],
+                                 s["why"]]), p.iters, reader)[1:])
 
     def _window_readback(self, s: dict, n0: int, fill: int, ran: int,
                          reader) -> np.ndarray:
@@ -1325,9 +1365,16 @@ class SamplingTree:
     def _execute_geometry_refinement(self, geometries: list) -> None:
         """Refine near geometry surfaces level by level up to the target
         level (reference ``_execute_geometry_refinement``,
-        s_cube.py:774-863).  Children get no gain/metric: the adaptive loop
-        is over and nothing reads them again."""
+        s_cube.py:774-863), on the JAX package's routes: windows of the
+        device-resident geometry loop (:meth:`_device_geometry_call`)
+        where its ``dev_ok`` holds and the level is at most 22, else the
+        host's per-level walk; a level a window could not run (a guard, a
+        surface wider than the window) runs on the host.  Children get no
+        gain/metric: the adaptive loop is over and nothing reads them
+        again."""
         logger.info("Geometry-surface refinement phase.")
+        route = self._epoch_stats["geometry_route"]
+        split = self._times["geometry_split"]
         for g in geometries:
             logger.info(f"Starting refining geometry {g.name}.")
             alive = self._alive_idx()
@@ -1342,10 +1389,28 @@ class SamplingTree:
                     else g.min_refinement_level)
             logger.info(f"Found a minimum cell level of {gmin}. Target "
                         f"level is {gmax}.")
-            while gmax > gmin:
+            # the JAX package's dev_ok: the 2:1 variant only on request
+            # (its measured warm trade-off), never above the table budget
+            loop_ok = (self.DEVICE_LOOP and not _huge(g)
+                       and (not self._max_delta_level or self.GEO_MDL_LOOP))
+            while gmax > gmin and surface.size:
+                cause = "route"
+                if loop_ok and gmin + 1 <= _F32_LEVEL_CAP:
+                    t0 = time()
+                    surface, gmin2, cause = self._device_geometry_call(
+                        g, surface, gmin, gmax)
+                    split["t_window"] += time() - t0
+                    if gmin2 > gmin:
+                        logger.info(f"\tDevice loop refined levels "
+                                    f"{gmin + 1}..{gmin2} / {gmax}.")
+                        gmin = gmin2
+                        continue
+                elif loop_ok:
+                    cause = "level_cap"
+                t0 = time()
                 logger.info(f"\tRefining level {gmin + 1} / {gmax}.")
                 to_refine = surface[self._level[surface] < gmax]
-                if self._max_delta_level and surface.size:
+                if self._max_delta_level:
                     # the 2:1 check covers every surface cell, those
                     # already at the target level too, and refines a
                     # coarser neighbour it finds even when that neighbour
@@ -1359,6 +1424,8 @@ class SamplingTree:
                             self._expand_delta_level(direct, lookup))
                 if to_refine.size == 0:
                     break
+                route["host_levels"] += 1
+                route["host_fallback"][cause] += 1
                 children = self._split(to_refine)
                 # children invalid w.r.t. THIS geometry only are removed
                 # (reference s_cube.py:850); the surviving children near
@@ -1369,8 +1436,140 @@ class SamplingTree:
                 self._alive[dead] = False
                 self._gain[dead] = 0.0
                 gmin += 1
+                split["t_host"] += time() - t0
         self._current_max_level = int(self._level[self._alive_idx()].max())
         logger.info("Finished geometry refinement.")
+
+    def _geometry_loop_shape(self, g, surface: np.ndarray, gmin: int,
+                             gmax: int) -> tuple:
+        """``(k_geo, cap)`` of geometry ``g``'s windows, chosen at its
+        first window and kept for the phase (the JAX package's sizes): the
+        frontier of a (d-1)-dimensional surface grows about 2^(d-1)-fold a
+        level, so ``k_geo`` holds the last level's, within two epoch
+        blocks of children; ``cap`` holds a full window's children."""
+        shape = self._geo_loop_shapes.get(id(g))
+        if shape is None:
+            d = self._n_dimensions
+            n_ch = 2 ** d
+            levels_left = max(gmax - gmin, 1)
+            est = 2 * max(int(surface.size), 64) * (
+                1 << ((d - 1) * min(levels_left - 1, 7)))
+            k_geo = _bucket(est, minimum=256)
+            while k_geo * n_ch > 2 * _EPOCH_CHUNK[d] and k_geo > 256:
+                k_geo //= 2
+            need = self._n_cells + self._GEO_LOOP_LEVELS * k_geo * n_ch + 1
+            shape = (k_geo, max(4096, 1 << (need - 1).bit_length()))
+            self._geo_loop_shapes[id(g)] = shape
+        return shape
+
+    def _device_geometry_call(self, g, surface: np.ndarray, gmin: int,
+                              gmax: int) -> tuple:
+        """One window of up to ``_GEO_LOOP_LEVELS`` geometry-refinement
+        levels on the device (the JAX package's ``_device_geometry_call``):
+        upload the cell rows and the frontier in one copy, run the levels,
+        read back the alive flags, the next frontier and each level's
+        parents once, and replay the split on the host.  Returns
+        ``(surface, gmin, cause)``: the next surface and level, advanced
+        past the levels run, and (of ``_GEO_FALLBACKS``) why a window ran
+        none."""
+        d, dev = self._n_dimensions, self.device
+        n_ch, levels = 2 ** d, self._GEO_LOOP_LEVELS
+        k_geo, cap = self._geometry_loop_shape(g, surface, gmin, gmax)
+        n0 = self._n_cells
+        if surface.size > k_geo or n0 + levels * k_geo * n_ch + 1 > cap:
+            return surface, gmin, "overflow"
+        frontier = np.full(k_geo, cap, dtype=np.int64)
+        frontier[:surface.size] = surface
+        rows = np.concatenate([self._coords[:n0], self._level[:n0, None],
+                               self._alive[:n0, None]], axis=1)
+        # n_fr, gcur, it, fill, maxlev, why; the frontier; the cell rows
+        buf = torch.from_numpy(np.concatenate([
+            [surface.size, gmin, 0, n0, self._current_max_level, 0],
+            frontier, rows.reshape(-1)]).astype(np.int64)).to(dev)
+        rows = buf[6 + k_geo:].reshape(n0, d + 2)
+        s = {"coords": torch.zeros((cap + 1, d), dtype=torch.int64,
+                                   device=dev),
+             "level": torch.zeros(cap + 1, dtype=torch.int64, device=dev),
+             "alive": torch.zeros(cap + 1, dtype=torch.bool, device=dev),
+             "fr": buf[6:6 + k_geo],
+             "flag": torch.zeros((), dtype=torch.bool, device=dev),
+             "fr_ok": torch.ones((), dtype=torch.bool, device=dev),
+             "psel": torch.full((levels + 1, k_geo), cap, dtype=torch.int64,
+                                device=dev)}
+        s["coords"][:n0] = rows[:, :d]
+        s["level"][:n0] = rows[:, d]
+        s["alive"][:n0] = rows[:, d + 1] != 0
+        s.update(zip(("n_fr", "gcur", "it", "fill", "maxlev", "why"),
+                     buf[:6]))
+        p = geometry_params(cap, k_geo, levels, d, gmax,
+                            self._max_delta_level, _F32_LEVEL_CAP,
+                            self._MDL_ROUNDS, self._offsets_i,
+                            self._nbdirs_i, self._lo_t, self._width_t,
+                            self._offsets_t)
+        reader = _Reader(dev)
+        ran, fill, why, n_fr, fr_ok, maxlev = self._run_geometry_window(
+            s, p, g.check_cells, reader)
+
+        route = self._epoch_stats["geometry_route"]
+        route["windows"] += 1
+        route["window_levels"] += ran
+        exits = [name for bit, name in _GEO_WHY_EXIT.items() if why & bit]
+        for name in exits or ["done" if gmin + ran >= gmax or n_fr == 0
+                              else "window_full"]:
+            route["window_exits"][name] += 1
+        if ran == 0:
+            route["d2h_syncs"] += reader.reads
+            return surface, gmin, exits[0]
+        i32 = torch.int32
+        out = torch.cat([s["alive"][:fill].to(i32), s["fr"].to(i32),
+                         s["psel"][:ran].reshape(-1).to(i32)]).cpu().numpy()
+        reader.reads += 1
+        route["d2h_syncs"] += reader.reads
+        alive, fr, psel = np.split(out, [fill, fill + k_geo])
+        psel = psel.reshape(ran, k_geo)
+        # the split again on the host, with the device's integer arithmetic
+        self._grow(fill - n0)
+        pos = n0
+        for parents in psel:
+            parents = parents[parents < cap]
+            m = parents.size * n_ch
+            self._coords[pos:pos + m] = (
+                self._coords[parents][:, None, :] * 2
+                + self._offsets[None, :, :]).reshape(-1, d)
+            self._level[pos:pos + m] = np.repeat(self._level[parents] + 1,
+                                                 n_ch)
+            pos += m
+        if pos != fill:
+            raise RuntimeError(f"geometry window replayed {pos} rows of "
+                               f"{fill}")
+        self._alive[:fill] = alive != 0
+        self._n_cells = fill
+        self._current_max_level = maxlev
+        gmin += ran
+        if fr_ok:
+            return fr[fr < cap].astype(np.int64), gmin, None
+        if gmin >= gmax:
+            return np.zeros(0, dtype=np.int64), gmin, None
+        # the last level's surface children outgrew k_geo: their surface
+        # flags again from device-built nodes (the JAX package's one call)
+        m = int((psel[-1] < cap).sum()) * n_ch
+        children = np.arange(fill - m, fill, dtype=np.int64)
+        children = children[self._alive[children]]
+        return (children[self._geo_flags_device(g, children)[1]], gmin,
+                None)
+
+    @staticmethod
+    def _run_geometry_window(s: dict, p, check_cells, reader) -> list:
+        """Enqueue the window's levels one ahead of the host's knowledge
+        (:func:`_enqueue_ahead`) on ``[may run, it, fill, why, n_fr,
+        fr_ok, maxlev]`` rows.  Returns the last row without its first
+        entry."""
+        return _enqueue_ahead(
+            lambda: geometry_level_body(s, p, check_cells),
+            lambda: torch.stack([
+                geometry_may_run(s, p).long(), s["it"], s["fill"], s["why"],
+                s["n_fr"], s["fr_ok"].long(), s["maxlev"]]),
+            p.levels, reader)[1:]
 
     # ------------------------------------------------------------------ #
     # final assembly                                                     #
@@ -1426,6 +1625,7 @@ class SamplingTree:
         info["t_uniform"] = t["t_end_uniform"] - t["t_start_uniform"]
         info["t_renumbering"] = t["t_end_renumber"] - t["t_start_renumber"]
         info["adaptive_split"] = t.get("adaptive_split", {})
+        info["geometry_split"] = dict(t["geometry_split"])
         if t["t_end_geometry"] > 0:
             info["t_geometry"] = t["t_end_geometry"] - t["t_start_geometry"]
             info["t_adaptive"] = t["t_start_geometry"] - t["t_start_adaptive"]
