@@ -137,7 +137,29 @@ Phases:
   ``SamplingTree.GEO_MDL_LOOP``) with the geometry-refinement loop on and
   then off: pinned grids identical row for row, each route's geometry
   wall and counters, and the winding kernel against its plain version at
-  the largest call inside ``stl3d``'s geometry loop.
+  the largest call inside ``stl3d``'s geometry loop;
+- ``sharded``: the multi-device layer (``sparsespatialsampling_torch/
+  parallel``) over virtual meshes of the card
+  (``parallel.mesh.VIRTUAL_SHARDS``), in four cases: ``large_single`` and
+  ``large_sharded``, bench workload 6 at its own size (2 000 000 points,
+  seed 0, in [4, 1, 1], 200 000 cells, no export) on one device and over
+  4 shards on the card, rows and iterations identical, the metric trace
+  to rtol 1e-5, the sharded run on the ``shard_grid`` core in device-loop
+  windows, both counts against the JAX package's recorded 205 308 cells
+  and pinned to the port's own; ``oat2d_sharded``, ``oat2d`` over 3
+  shards (245 000 points do not divide by 3) with its pins, rows
+  identical to ``oat2d``'s, and the 50 snapshots through the sharded
+  index and ``sharded_interpolate``, weights and fields bitwise
+  ``oat2d``'s; ``svd_distributed``, ``svd_routes``' planted matrix through
+  ``compute_svd`` over 4 shards (``distributed_rsvd``) to ``svd_routes``'
+  limits, its wall beside the single-device route's; ``mixed_mesh``, the
+  ``cuda_vs_cpu`` case over the mesh ``[cuda:0, cpu]``, rows and
+  iterations identical to ``cuda_vs_cpu``'s (an operation that mixes
+  devices without an explicit move raises there).  The kernel selects at
+  four sharded call sites: ``shard_tile`` and ``shard_tile_merge`` (a
+  shard's full-scan tiles and their merge), ``shard_merge`` (the
+  shards' candidates on the root) and ``shard_grid_select`` (the owner's
+  selection on its unsorted grid rows); each must launch in the phase.
 
 Every grid phase prints its adaptive route (``adaptive_route``: the
 device-resident loop's windows, their iterations, the host iterations and
@@ -352,29 +374,53 @@ def phase_kernel() -> dict:
     return out
 
 
-# the kNN function that calls the kernel → its call site's name (the full
-# scan's merge selects in ``_search`` itself); ``_topk_canonical`` selects
-# for ``_blocked_topk``, whose radius tells the two sites apart
-SITES = {"_dilated_select": "grid_select", "_tile_select": "full_scan_tile",
-         "_search": "full_scan_merge"}
+# the kNN function that calls the kernel → its call site's name
+# (:func:`site_of`): ``_tile_select`` and ``_score_candidates`` (the merge
+# of the tiles' candidates) select for the single-device full scan
+# (``_search``) and for a shard's (``_shard_candidates``);
+# ``_topk_canonical`` selects for ``_blocked_topk``, whose radius tells the
+# ring from the blocked layout, and for the sharded index's merge and grid
+SITES = {"_dilated_select": "grid_select"}
 RING, BLOCKED = "ring_select", "blocked_select"
+SHARD_SITES = ("shard_tile", "shard_tile_merge", "shard_merge",
+               "shard_grid_select")
+_CANONICAL_CALLERS = {"_shard_merge": "shard_merge",
+                      "_shard_grid_select": "shard_grid_select"}
 # the sites every run of a phase must have launched from
 MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
+# bench workload 6's (cells, iterations) on the port, on one device and
+# sharded alike (its first card run; the cells are the JAX package's)
+LARGE_PIN = (205_308, 16)
+# ``oat2d``'s captured metric (the JAX package's BENCH_r05.json figure)
+OAT2D_CAPTURED = 0.5643497087612296
+# the JAX package's recorded cells of bench workload 6 (BENCH_r05.json,
+# ``large_n_cells``)
+LARGE_JAX_CELLS = 205_308
 # (cells, iterations) of each grid phase's workload, the same whichever
 # exact route answers each query
 EXPECTED = {"grid3d": (151_557, 43), "grid2d_metric": (50_263, 67),
             "oat2d": (27_084, 33), "cylinder3d": (151_370, 43),
             "mdl2d": (28_406, 34), "stl3d": (40_202, 29),
-            "c2d_reltol": (10_415, 135), "mdl2d_25k": (4_961, 25)}
+            "c2d_reltol": (10_415, 135), "mdl2d_25k": (4_961, 25),
+            "large_single": LARGE_PIN, "large_sharded": LARGE_PIN,
+            "oat2d_sharded": (27_084, 33)}
 # the fraction of a run's adaptive iterations the device loop must run
 # where it is eligible (the rest only where a guard explains them)
 LOOP_SHARE = 0.9
 
 
 def site_of(frame) -> str:
-    name = frame.f_code.co_name
+    name, caller = frame.f_code.co_name, frame.f_back.f_code.co_name
     if name == "_topk_canonical":
+        if caller in _CANONICAL_CALLERS:
+            return _CANONICAL_CALLERS[caller]
         return RING if frame.f_back.f_locals["radius"] > 1 else BLOCKED
+    if name == "_score_candidates":
+        return ("shard_tile_merge" if caller == "_shard_candidates"
+                else "full_scan_merge")
+    if name == "_tile_select":
+        return ("shard_tile" if frame.f_back.f_back.f_code.co_name
+                == "_shard_candidates" else "full_scan_tile")
     return SITES.get(name, name)
 
 
@@ -400,7 +446,10 @@ class KernelTap:
         def tapped(x, k):
             site = site_of(sys._getframe(1))
             held = self.inputs.get(site)
-            if held is None or x.numel() > held[0].numel():
+            # a CPU shard's selection runs the plain version: nothing to
+            # hold against it
+            if x.is_cuda and (held is None
+                              or x.numel() > held[0].numel()):
                 self.inputs[site] = (x, k)
             before = self._topk.launches
             out = self._orig(x, k)
@@ -546,11 +595,16 @@ def adaptive_route(s3, sync=None) -> dict:
     return out
 
 
-def check_route(phase: str, route: dict, device_loop: bool) -> None:
+def check_route(phase: str, route: dict, device_loop: bool,
+                mesh: bool = False) -> None:
     """The device loop must have run the adaptive iterations where it is
     eligible: fewer windows than iterations and at least ``LOOP_SHARE`` of
     the iterations, unless host iterations at the level cap or past the
-    loop's budget explain the rest; elsewhere the host loop alone."""
+    loop's budget explain the rest; elsewhere the host loop alone.  On a
+    mesh (``mesh``), which has no ring, a window also ends at the first
+    epoch that meets a bad row (the JAX package's sharded loop): there
+    every window but the last may end so, as many windows as
+    iterations."""
     if not device_loop:
         if route["windows"]:
             raise AssertionError(f"{phase}: the device loop ran where the "
@@ -560,8 +614,10 @@ def check_route(phase: str, route: dict, device_loop: bool) -> None:
                                   + route["host_iterations"])
     fb = route["host_fallback"]
     explained = fb["level_cap"] + fb["disabled"]
-    if not (0 < w < iters) or (route["window_iterations"] < LOOP_SHARE * iters
-                               and route["host_iterations"] > explained):
+    many = w < iters or (mesh and route["window_exits"]["bad_rows"] >= w - 1)
+    if not (0 < w <= iters and many) or (
+            route["window_iterations"] < LOOP_SHARE * iters
+            and route["host_iterations"] > explained):
         raise AssertionError(f"{phase}: the device loop did not carry the "
                              f"adaptive iterations: {route}")
 
@@ -749,6 +805,7 @@ def grid_summary(s3, phase_t: dict) -> dict:
     return {"n_cells": int(info["n_cells"]),
             "iterations": int(info["iterations"]),
             "captured_metric": float(info["metric_per_iter"][-1]),
+            "epoch_core": st["core"],
             "ring_queries": int(st["ring_queries"]),
             "rescued_queries": int(st["rescued_queries"]),
             "bad_cells_escalated": int(st["n_bad_cells"]),
@@ -845,14 +902,14 @@ def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
 
 def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
                   export=None, sites=MAIN_SITES, kernels=("topk_smallest",),
-                  device_loop=True, **kw):
+                  device_loop=True, mesh=False, **kw):
     """One main-path run with the counters set to 0 just before it and read
     just after; each of ``kernels`` (those of the run's path) and each of
     ``sites`` must have launched, and no selection may have taken the
     stable sort.  The adaptive iterations must have taken the device loop
     where ``device_loop`` (and ``SamplingTree.DEVICE_LOOP``) says so, else
-    the host loop (:func:`check_route`); the route goes into the walls'
-    ``adaptive_route``.  A geometry phase's levels must have taken the JAX
+    the host loop (:func:`check_route`, with ``mesh`` for a sharded run);
+    the route goes into the walls' ``adaptive_route``.  A geometry phase's levels must have taken the JAX
     package's route (:func:`check_geometry_route`), reported as
     ``geometry_route``."""
     from sparsespatialsampling_torch.engine.tree import SamplingTree
@@ -865,7 +922,7 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
         counts = read_counts()
     t["adaptive_route"] = adaptive_route(s3, sync)
     check_route(phase, t["adaptive_route"],
-                device_loop and SamplingTree.DEVICE_LOOP)
+                device_loop and SamplingTree.DEVICE_LOOP, mesh)
     if s3.data_final_mesh["t_geometry"] is not None:
         t["geometry_route"] = geometry_route(s3, geo_sync)
         check_geometry_route(phase, t["geometry_route"], geometry_loop_on(kw))
@@ -1118,7 +1175,8 @@ def case_summary(s3, t) -> dict:
             "refine_s": t["refine"]}
 
 
-def phase_cuda_vs_cpu(tmp: str) -> dict:
+def phase_cuda_vs_cpu(tmp: str) -> tuple:
+    """Returns the phase's line and the card's grid in row order."""
     xyz, metric, geometries, kw = compare_case()
     keys, out = {}, {"phase": "cuda_vs_cpu", "n_points": 60_000}
     for dev in ("cuda", "cpu"):
@@ -1126,8 +1184,10 @@ def phase_cuda_vs_cpu(tmp: str) -> dict:
                                   device=dev, **kw)
         keys[dev] = grid_key(s3)
         out[dev] = case_summary(s3, t)
+        if dev == "cuda":
+            rows = grid_rows(s3)
     out.update(compare_grids("cuda and cpu", keys["cuda"], keys["cpu"]))
-    return out
+    return out, rows
 
 
 def phase_blocked_layout(tmp: str) -> tuple:
@@ -1210,16 +1270,17 @@ def phase_oat2d(tmp: str) -> tuple:
     the OAT15 configuration with the bbox pre-select route, 50 snapshots
     interpolated, then the rank-20 weighted SVD and a DMD."""
     xy, metric, geometries, kw = oat2d_case()
-    s3, _, field, t, counts, tap, _ = main_path_run(
+    snaps = bench_snapshots(metric)
+    s3, exp, field, t, counts, tap, _ = main_path_run(
         "oat2d", tmp, "oat", xy, metric, geometries,
-        export=bench_snapshots(metric), sites=("grid_select", RING), **kw)
+        export=snaps, sites=("grid_select", RING), **kw)
     out = {"phase": "oat2d", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts,
            "launches_per_site": dict(tap.launches)}
     check_expected("oat2d", out)
     out["analysis"] = analysis(tmp, "oat", s3, field, t)
     out["kernel_at_call_sites"] = check_sites(tap)
-    return out, counts
+    return out, counts, export_result(s3, exp, field, xy, snaps)
 
 
 def phase_cylinder3d(tmp: str) -> tuple:
@@ -1398,6 +1459,8 @@ class SvdTap:
                          (svd, "_modes", "t_modes"),
                          (utils, "economy_svd_device", "economy_svd"),
                          (utils, "randomized_svd_device", "randomized_svd"),
+                         (utils, "distributed_rsvd_device",
+                          "distributed_rsvd"),
                          (utils, "optimal_rank_sketched", "sketched_rank")]
         self.seconds, self.calls, self._saved = {}, {}, []
 
@@ -2248,6 +2311,276 @@ def phase_geometry_loop_vs_host(tmp: str, stl_path: str) -> dict:
     return out
 
 
+def export_result(s3, exp, field, pts, snaps) -> dict:
+    """What a sharded export is held to: the grid's rows, the export's
+    weights and neighbours of the cell centres, and the interpolated
+    ``[M, 1, S]`` field (again through ``ExportData.interpolate`` where
+    the export wrote HDF5)."""
+    if field is None:
+        field = exp.interpolate(pts, snaps[0][:, None, :])
+    return {"rows": grid_rows(s3), "field": np.asarray(field),
+            "w": exp._w_centers.cpu().numpy(),
+            "idx": exp._idx_centers.cpu().numpy()}
+
+
+class VirtualMesh:
+    """``parallel.mesh.VIRTUAL_SHARDS`` set to ``shards`` (a count of
+    shards on the card, or a list of devices) inside a ``with`` block."""
+
+    def __init__(self, shards):
+        self.shards = shards
+
+    def __enter__(self):
+        from sparsespatialsampling_torch.parallel import mesh
+        self._mesh, self._saved = mesh, mesh.VIRTUAL_SHARDS
+        mesh.VIRTUAL_SHARDS = self.shards
+        return self
+
+    def __exit__(self, *exc):
+        self._mesh.VIRTUAL_SHARDS = self._saved
+
+
+def large_case():
+    """Bench workload 6 (``bench.py:501-527``, the reference's
+    ``examples/s3_synthetic_large_scale.py`` configuration) at its own
+    size: 2 000 000 points (seed 0) in [4, 1, 1] with its metric, a
+    ``CubeGeometry`` domain, ``uniform_levels=4``, ``n_cells_max=200_000``,
+    ``n_cells_iter_start=2000``.  ``(points, metric, geometries, grid
+    arguments)``."""
+    from sparsespatialsampling_torch import CubeGeometry
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform([0, 0, 0], [4, 1, 1],
+                      size=(2_000_000, 3)).astype(np.float32)
+    metric = (np.exp(-np.maximum(xyz[:, 0] - 0.5, 0))
+              * np.exp(-((xyz[:, 1] - 0.5) ** 2
+                         + (xyz[:, 2] - 0.5) ** 2) / 0.1)
+              + 0.01).astype(np.float64)
+    return (xyz, metric, [CubeGeometry("domain", True, [0, 0, 0], [4, 1, 1])],
+            {"uniform_levels": 4, "n_cells_max": 200_000,
+             "n_cells_iter_start": 2000})
+
+
+def sharded_summary(s3, t, counts, tap) -> dict:
+    """A sharded run's line: the grid summary, the launches per call site
+    and what the escalation to the sharded full scan cost."""
+    st = s3.data_final_mesh["epoch_stats"]
+    return {**grid_summary(s3, t), "launches": counts,
+            "launches_per_site": dict(tap.launches),
+            "escalated_to_sharded_full_scan": {
+                "cells": int(st["full_scan_cells"]),
+                "passes": int(st["n_calls_full"]),
+                "wall_s": float(st["t_retry_s"])}}
+
+
+def check_core(case: str, out: dict, core: str) -> None:
+    if out["epoch_core"] != core:
+        raise AssertionError(f"{case}: the epochs ran the {out['epoch_core']}"
+                             f" core, not {core}")
+
+
+def case_large(tmp: str) -> tuple:
+    """Workload 6 on one device, then over 4 shards on the card: rows,
+    iterations and the metric trace equal, the sharded run on the
+    ``shard_grid`` core.  Returns the case's line and its runs' taps."""
+    xyz, metric, geometries, kw = large_case()
+    s3, _, _, t, counts, tap1, _ = main_path_run(
+        "large_single", tmp, "large1", xyz, metric, geometries,
+        sites=("grid_select",), **kw)
+    single = {**grid_summary(s3, t), "launches": counts,
+              "launches_per_site": dict(tap1.launches)}
+    rows = grid_rows(s3)
+    del s3
+    torch.cuda.empty_cache()
+    with VirtualMesh(4):
+        s3, _, _, t, counts, tap4, _ = main_path_run(
+            "large_sharded", tmp, "large4", xyz, metric, geometries,
+            sites=("shard_grid_select",), mesh=True, **kw)
+    sharded = sharded_summary(s3, t, counts, tap4)
+    check_core("large_sharded", sharded, "shard_grid")
+    out = {"case": "large", "n_points": int(xyz.shape[0]), "shards": 4,
+           "jax_recorded_cells": LARGE_JAX_CELLS,
+           "jax_recorded_source": "BENCH_r05.json (large_n_cells)",
+           "port_cells": {"single": single["n_cells"],
+                          "sharded": sharded["n_cells"]},
+           "pin": {"cells": LARGE_PIN[0], "iterations": LARGE_PIN[1]},
+           "wall_s_refine_total": {
+               "single": single["wall_s"]["refine_total"],
+               "sharded": sharded["wall_s"]["refine_total"]},
+           "single": single, "sharded": sharded,
+           **compare_routes("large: single device and 4 shards", rows,
+                            grid_rows(s3))}
+    del s3
+    torch.cuda.empty_cache()
+    check_expected("large_single", single)
+    check_expected("large_sharded", sharded)
+    return out, [tap4], {"large_single": single["launches"],
+                         "large_sharded": counts}
+
+
+def case_oat2d_sharded(tmp: str, oat_ref: dict) -> tuple:
+    """``oat2d`` over 3 shards (its 245 000 points pad to a multiple of
+    3): the pins, rows identical to ``oat2d``'s, and the 50 snapshots
+    through the sharded index and ``sharded_interpolate``, the weights
+    and fields bitwise ``oat2d``'s."""
+    from sparsespatialsampling_torch.parallel import ShardedKNNIndex
+    xy, metric, geometries, kw = oat2d_case()
+    snaps = bench_snapshots(metric)
+    with VirtualMesh(3):
+        s3, exp, field, t, counts, tap, _ = main_path_run(
+            "oat2d_sharded", tmp, "oat3", xy, metric, geometries,
+            export=snaps, sites=("shard_grid_select",), mesh=True, **kw)
+    out = {"case": "oat2d_sharded", "n_points": int(xy.shape[0]),
+           "shards": 3, **sharded_summary(s3, t, counts, tap),
+           "export_fallback_rows": int(exp.timings["n_fallback"]),
+           "export_split_s": {key: exp.timings[key] for key in (
+               "t_weights", "t_metric", "t_kernel", "t_h5")}}
+    check_expected("oat2d_sharded", out)
+    check_core("oat2d_sharded", out, "shard_grid")
+    if out["captured_metric"] != OAT2D_CAPTURED:
+        raise AssertionError(f"oat2d_sharded: captured "
+                             f"{out['captured_metric']!r}, not "
+                             f"{OAT2D_CAPTURED!r}")
+    if not (isinstance(exp._knn, ShardedKNNIndex) and exp._mesh.size == 3):
+        raise AssertionError("oat2d_sharded: the export did not index the "
+                             "cloud over the 3-shard mesh")
+    got = export_result(s3, exp, field, xy, snaps)
+    out.update(compare_routes("oat2d: single device and 3 shards",
+                              got["rows"], oat_ref["rows"]))
+    same = {key: bool(np.array_equal(got[key], oat_ref[key]))
+            for key in ("w", "idx", "field")}
+    if not all(same.values()):
+        raise AssertionError(f"oat2d_sharded: the export differs from "
+                             f"oat2d's: bitwise equal {same}")
+    out["export_bitwise_equal_oat2d"] = same
+    return out, [tap], {"oat2d_sharded": counts}
+
+
+def case_svd_distributed() -> dict:
+    """``svd_routes``' planted matrix through ``compute_svd(rank=None)``
+    with 4 shards on the card: it must take ``distributed_rsvd`` and the
+    sketched rank; the top four values to rtol 1e-2 of the planted
+    spectrum and of ``economy_svd``, subspace cosines ≥ 0.999;
+    ``distributed_rsvd(rank=20)`` on the card against the CPU's (the
+    same sketch over 4 CPU shards), ``s`` to rtol 1e-4.  Walls beside the
+    single-device route's on the same matrix, two calls of each in turns
+    (single, sharded, sharded, single)."""
+    from sparsespatialsampling_torch import compute_svd
+    from sparsespatialsampling_torch.ops.svd import economy_svd
+    from sparsespatialsampling_torch.parallel import (distributed_rsvd,
+                                                      make_mesh)
+    a, u0, v0 = planted_matrix()
+    ones = np.ones(a.shape[0], dtype=np.float32)
+    walls = {"compute_svd_auto_single_device": [],
+             "compute_svd_auto_4_shards": []}
+    for shards in (None, 4, 4, None):
+        key = ("compute_svd_auto_4_shards" if shards else
+               "compute_svd_auto_single_device")
+        with VirtualMesh(shards), SvdTap() as one:
+            t0 = time.perf_counter()
+            res = compute_svd(a, ones)
+            walls[key].append(time.perf_counter() - t0)
+        if shards:
+            s, u, v = res
+            tap = one
+        else:
+            single_tap = one
+    if (tap.calls.get("distributed_rsvd") != 1
+            or tap.calls.get("sketched_rank") != 1
+            or "randomized_svd" in tap.calls or "economy_svd" in tap.calls
+            or single_tap.calls.get("randomized_svd") != 1):
+        raise AssertionError(f"compute_svd took the routes {tap.calls} over "
+                             f"4 shards and {single_tap.calls} on one "
+                             f"device")
+    k = len(PLANTED)
+    u_e, s_e, v_e = economy_svd(a)
+    cos = {"planted_u": subspace_cosines(u[:, :k], u0).min(),
+           "planted_v": subspace_cosines(v[:, :k], v0).min(),
+           "economy_u": subspace_cosines(u[:, :k], u_e[:, :k]).min(),
+           "economy_v": subspace_cosines(v[:, :k], v_e[:, :k]).min()}
+    rel = {"planted": np.abs(s[:k] / np.asarray(PLANTED) - 1).max(),
+           "economy": np.abs(s[:k] / s_e[:k] - 1).max()}
+    if s.shape[0] < k or max(rel.values()) > 1e-2 or min(cos.values()) < 0.999:
+        raise AssertionError(f"svd_distributed: {s.shape[0]} values, top "
+                             f"{k} off by {rel}, subspace cosines {cos}")
+    with VirtualMesh(4):
+        walls["distributed_rsvd_rank20"] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            _, s_card, _ = distributed_rsvd(a, 20, make_mesh(device="cuda"))
+            walls["distributed_rsvd_rank20"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _, s_cpu, _ = distributed_rsvd(a.cpu(), 20, make_mesh(device="cpu"))
+        walls["distributed_rsvd_rank20_cpu"] = time.perf_counter() - t0
+    err = float(np.abs(s_card / s_cpu - 1).max())
+    if err > 1e-4:
+        raise AssertionError(f"distributed_rsvd(rank=20) on the card differs "
+                             f"from the CPU's by {err:.3e} (relative)")
+    return {"case": "svd_distributed", "shape": list(a.shape), "shards": 4,
+            "routes": tap.calls, "routes_single_device": single_tap.calls,
+            "sketched_rank": int(s.shape[0]), "s_top": s[:k + 1].tolist(),
+            "max_rel_err_top4": {key: float(v) for key, v in rel.items()},
+            "min_subspace_cos": {key: float(v) for key, v in cos.items()},
+            "rank20_s_max_rel_err_vs_cpu": err, "wall_s": walls,
+            "split_s": tap.seconds}
+
+
+def case_mixed_mesh(tmp: str, cmp_rows: tuple) -> tuple:
+    """The ``cuda_vs_cpu`` case over the mesh ``[cuda:0, cpu]``: every
+    shard operation crosses devices by an explicit move or raises; rows
+    and iterations equal ``cuda_vs_cpu``'s card run."""
+    xyz, metric, geometries, kw = compare_case()
+    with VirtualMesh([torch.device("cuda", 0), torch.device("cpu")]):
+        s3, _, _, t, counts, tap, _ = main_path_run(
+            "mixed_mesh", tmp, "mixed", xyz, metric, geometries,
+            sites=("shard_grid_select",), mesh=True, **kw)
+    out = {"case": "mixed_mesh", "mesh": ["cuda:0", "cpu"],
+           "n_points": int(xyz.shape[0]),
+           **sharded_summary(s3, t, counts, tap),
+           **compare_routes("mixed mesh and cuda_vs_cpu", grid_rows(s3),
+                            cmp_rows)}
+    check_core("mixed_mesh", out, "shard_grid")
+    return out, [tap], {"mixed_mesh": counts}
+
+
+def phase_sharded(tmp: str, oat_ref: dict, cmp_rows: tuple) -> tuple:
+    """The multi-device layer over virtual meshes of the card.  Returns
+    the phase's line, each sharded call site's largest input checked and
+    timed, and the launches of each case's main-path runs."""
+    out, taps, counts = {"phase": "sharded"}, [], {}
+    t0 = time.perf_counter()
+    for key, run in (("large", lambda: case_large(tmp)),
+                     ("oat2d_sharded", lambda: case_oat2d_sharded(tmp,
+                                                                  oat_ref)),
+                     ("mixed_mesh", lambda: case_mixed_mesh(tmp, cmp_rows))):
+        t1 = time.perf_counter()
+        out[key], case_taps, case_counts = run()
+        out[key]["case_wall_s"] = time.perf_counter() - t1
+        taps += case_taps
+        counts.update(case_counts)
+    t1 = time.perf_counter()
+    out["svd_distributed"] = case_svd_distributed()
+    out["svd_distributed"]["case_wall_s"] = time.perf_counter() - t1
+    launches = {site: sum(tap.launches.get(site, 0) for tap in taps)
+                for site in SHARD_SITES}
+    missing = [site for site, n in launches.items() if not n]
+    if missing:
+        raise AssertionError(f"sharded: call sites never launched: {missing}")
+    out["launches_per_sharded_site"] = launches
+    # each site's largest input over the sharded runs (the taps hold
+    # references), checked and timed after the runs
+    largest = {}
+    for tap in taps:
+        for site, (x, k) in tap.inputs.items():
+            if site in SHARD_SITES and (site not in largest or x.numel()
+                                        > largest[site][0].numel()):
+                largest[site] = (x, k)
+    sites = {site: {**check_topk(x, k), "launches": launches[site]}
+             for site, (x, k) in sorted(largest.items())}
+    out["kernel_at_call_sites"] = sites
+    out["phase_wall_s"] = time.perf_counter() - t0
+    return out, counts
+
+
 def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
     """The ``kernels`` line's entry of ``winding_number``: the top-level
     times are at [1024, 51552], the ``stl3d`` mesh at the JAX package's
@@ -2312,12 +2645,13 @@ def main() -> int:
         emit(grid3d)
         grid2d, counts2d = phase_grid2d_metric(tmp)
         emit(grid2d)
-        emit(phase_cuda_vs_cpu(tmp))
+        cmp, cmp_rows = phase_cuda_vs_cpu(tmp)
+        emit(cmp)
         blocked, counts_blk = phase_blocked_layout(tmp)
         emit(blocked)
         emit(phase_large_k())
         emit({"phase": "matmul_precision", **check_matmul_precision()})
-        oat, counts_oat = phase_oat2d(tmp)
+        oat, counts_oat, oat_ref = phase_oat2d(tmp)
         emit(oat)
         cyl, counts_cyl = phase_cylinder3d(tmp)
         emit(cyl)
@@ -2337,6 +2671,8 @@ def main() -> int:
         emit(stl)
         emit(phase_stl_cuda_vs_cpu(tmp, small_path, small))
         emit(phase_geometry_loop_vs_host(tmp, big_path))
+        sharded, counts_sharded = phase_sharded(tmp, oat_ref, cmp_rows)
+        emit(sharded)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2346,10 +2682,11 @@ def main() -> int:
     # blocked layout's from the blocked_layout run
     sites3d = grid3d["kernel_at_call_sites"]
     sites = {**sites3d,
-             BLOCKED: blocked["kernel_at_call_sites"][BLOCKED]}
+             BLOCKED: blocked["kernel_at_call_sites"][BLOCKED],
+             **sharded["kernel_at_call_sites"]}
     checks = (kernel["cases"] + list(sites3d.values())
               + [c for phase in (grid2d, blocked, oat, cyl, mdl, mdl25k, c2d,
-                                 stl)
+                                 stl, sharded)
                  for c in phase["kernel_at_call_sites"].values()])
     timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -2367,6 +2704,8 @@ def main() -> int:
         "launches_mdl2d_25k": counts_mdl25k["topk_smallest"],
         "launches_c2d_reltol": counts_c2d["topk_smallest"],
         "launches_stl3d": counts_stl["topk_smallest"],
+        **{f"launches_{case}": c["topk_smallest"]
+           for case, c in counts_sharded.items()},
         "launches_route": "device loop, blocked_layout's the host loop",
         "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
         "max_abs_err": max(c["max_abs_err"] for c in checks),

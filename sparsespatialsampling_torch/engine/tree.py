@@ -63,6 +63,18 @@ With ``max_delta_level`` every refinement keeps the 2:1 balance: a cell is
 split only together with each coarser leaf that touches it by a face, an
 edge or a corner, transitively (:meth:`SamplingTree._expand_delta_level`
 on the host, ``device_loop._mdl_expand`` in the device loop).
+
+Where sharding is enabled (``parallel/mesh.sharding_enabled``: more than
+one card, or a virtual mesh), the cloud is sharded over a mesh
+(``parallel.ShardedKNNIndex``), the cell state stays on the mesh's root,
+and the epochs run one of the JAX package's two sharded cores
+(``_build_epoch_fn_sharded``): ``shard_grid``, the row-sharded dilated
+grid, each shard answering the queries whose home cell it owns, or
+``shard_full``, each shard's ``k + 8`` candidates merged on the root.
+There is no ring and no rescue under a mesh: a cell still ``bad`` goes
+straight to the sharded full scan, and a window of the device loop ends
+on it.  Both cores emit the single-device canonical order, so a sharded
+grid equals the single-device one row for row.
 """
 import logging
 from functools import reduce
@@ -75,6 +87,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops import morton
+from ..parallel import ShardedKNNIndex, default_mesh, sharding_enabled
 from ..ops.knn import (KNNIndex, _blocked_topk, _dilated_topk, _fma, _idw,
                        _rowsum, _search, _weighted_sum)
 from .device_loop import (WHY_BAD, WHY_BUDGET, WHY_FILL, WHY_LEVEL, WHY_MDL,
@@ -286,7 +299,18 @@ class SamplingTree:
         # (reference ``s_cube.py:161-163``)
         self._n_neighbors = 8 if d == 2 else 26
         t_knn0 = time()
-        self._knn = KNNIndex(vertices, values=target, device=self.device)
+        if sharding_enabled(self.device):
+            # the cloud sharded over the mesh; the state on its root
+            self._mesh = default_mesh(self.device)
+            self.device = self._mesh.root
+            self._knn = ShardedKNNIndex(vertices, self._mesh, values=target)
+            core = self._knn.core_kind
+        else:
+            self._mesh = None
+            self._knn = KNNIndex(vertices, values=target, device=self.device)
+            grid = self._knn._grid
+            core = ("full" if grid is None else
+                    "dil" if "dil_pts" in grid else "blocked")
         t_knn = time() - t_knn0
 
         # flat cell arrays (append-only; index == creation order == tie-break)
@@ -312,7 +336,9 @@ class SamplingTree:
                        "t_end_renumber": 0.0, "t_init": 0.0,
                        "t_knn_build": 0.0,
                        "geometry_split": {"t_window": 0.0, "t_host": 0.0}}
-        # epoch accounting: query count; main, host-ring and full-scan
+        # epoch accounting: the epoch core (``dil``, ``blocked`` or
+        # ``full`` on one device, ``shard_grid`` or ``shard_full`` on a
+        # mesh); query count; main, host-ring and full-scan
         # passes; cells that left their epoch still bad, and those of them
         # the host ring left to the full scan; queries the in-epoch ring
         # and the in-epoch full-scan rescue answered; wall seconds of all
@@ -323,7 +349,8 @@ class SamplingTree:
         # to the host that ``_device_adaptive_call`` made; and the geometry
         # loop's windows, their levels, the host levels and why, why each
         # window ended, and the reads back ``_device_geometry_call`` made
-        self._epoch_stats = {"queries": 0, "n_calls_main": 0,
+        self._epoch_stats = {"core": core, "queries": 0,
+                             "n_calls_main": 0,
                              "n_calls_ring": 0, "n_calls_full": 0,
                              "n_bad_cells": 0, "full_scan_cells": 0,
                              "ring_queries": 0, "rescued_queries": 0,
@@ -575,6 +602,9 @@ class SamplingTree:
             invalid = invalid | host_invalid
         nq = queries.shape[0]
         counts = torch.zeros(4, dtype=torch.int64, device=self.device)
+        if self._mesh is not None:
+            return self._sharded_epoch_tail(queries, level, mode, invalid,
+                                            slot, counts)
         if mode == "full":
             sq, nbr = _search(queries, knn._points, knn._points_sq, k,
                               knn._tile_n, knn._tile_q)
@@ -603,6 +633,30 @@ class SamplingTree:
                 self._rescue(queries, sq, nbr, badq, counts, rescue_rows)
         bad = badq.reshape(-1, n_children).any(dim=1)
         pred = _weighted_sum(_idw(sq), knn._values[nbr])
+        return self._gain_tail(level, pred, invalid, bad), counts
+
+    def _sharded_epoch_tail(self, queries, level, mode: str, invalid,
+                            slot, counts):
+        """The kNN and the packed output of :meth:`_epoch_core` under a
+        mesh (the JAX package's ``fn_grid`` and ``fn`` of
+        ``_build_epoch_fn_sharded``): the ``shard_grid`` core for
+        ``"grid"`` where the index has it, else the ``shard_full`` core,
+        never bad.  No ring and no rescue: ``counts[0]`` alone is set."""
+        knn, k = self._knn, self._n_neighbors
+        n_children = 1 + 2 ** self._n_dimensions
+        if mode == "grid" and knn.core_kind == "shard_grid":
+            sq, _, vals, ok = knn.grid_select(queries, k)
+            badq = ~ok & ~invalid.repeat_interleave(n_children)
+            if slot is not None:
+                badq &= slot.repeat_interleave(n_children)
+            counts[0] = badq.sum()
+        else:
+            sq, nbr = knn.full_select(queries, k)
+            vals = knn._values[nbr]
+            badq = torch.zeros(queries.shape[0], dtype=torch.bool,
+                               device=self.device)
+        bad = badq.reshape(-1, n_children).any(dim=1)
+        pred = _weighted_sum(_idw(sq), vals)
         return self._gain_tail(level, pred, invalid, bad), counts
 
     def _ring(self, queries, sq, nbr, badq, counts, plan) -> None:
@@ -643,8 +697,8 @@ class SamplingTree:
     def _maybe_enable_rescue(self) -> None:
         """At the first cell escalation, turn the in-epoch full-scan rescue
         on for every later epoch (the JAX package's default "auto" mode,
-        which spares hole-free runs its cost)."""
-        if not self._rescue_active:
+        which spares hole-free runs its cost); never under a mesh."""
+        if not self._rescue_active and self._mesh is None:
             logger.info("Bad cells appeared: enabling the in-epoch "
                         "full-scan rescue for subsequent epochs.")
             self._rescue_active = True
@@ -708,20 +762,22 @@ class SamplingTree:
         """Host escalation of cells still bad after their epoch (the JAX
         package's ``_resolve_retries``): the rescue turns on, a radius-4
         ring epoch answers the cells' queries, 256 cells a pass, and only
-        the cells it still marks bad run through the exact full scan."""
+        the cells it still marks bad run through the exact full scan.
+        Under a mesh (no ring) every cell goes to the sharded full scan."""
         self._maybe_enable_rescue()
         st = self._epoch_stats
         st["n_bad_cells"] += int(retry_idx.size)
         t0 = time()
-        still = []
-        for lo in range(0, retry_idx.size, _RETRY_RING_CELLS):
-            part = retry_idx[lo:lo + _RETRY_RING_CELLS]
-            out = self._epoch(part, "ring")
-            st["n_calls_ring"] += 1
-            bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
-            self._apply_epoch_out(part[~bad], out[~bad])
-            still.append(part[bad])
-        retry_idx = np.concatenate(still)
+        if self._mesh is None:
+            still = []
+            for lo in range(0, retry_idx.size, _RETRY_RING_CELLS):
+                part = retry_idx[lo:lo + _RETRY_RING_CELLS]
+                out = self._epoch(part, "ring")
+                st["n_calls_ring"] += 1
+                bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
+                self._apply_epoch_out(part[~bad], out[~bad])
+                still.append(part[bad])
+            retry_idx = np.concatenate(still)
         st["full_scan_cells"] += int(retry_idx.size)
         for lo in range(0, retry_idx.size, chunk):
             part = retry_idx[lo:lo + chunk]
@@ -988,13 +1044,14 @@ class SamplingTree:
     # ------------------------------------------------------------------ #
     def _adaptive_device_eligible(self) -> bool:
         """The JAX package's condition (its ``_adaptive_device_eligible``):
-        the dilated grid layout or no grid (the full-scan core), no
-        geometry above ``_FUSED_GEO_BYTES`` (its validity is merged on the
-        host after each epoch, which a window never sees), and the loop
-        neither switched off nor disabled."""
+        the dilated grid layout, no grid (the full-scan core) or a mesh
+        (either sharded core), no geometry above ``_FUSED_GEO_BYTES`` (its
+        validity is merged on the host after each epoch, which a window
+        never sees), and the loop neither switched off nor disabled."""
         grid = self._knn._grid
         return (self.DEVICE_LOOP and not self._device_loop_disabled
-                and (grid is None or "dil_pts" in grid)
+                and (self._mesh is not None or grid is None
+                     or "dil_pts" in grid)
                 and not any(_huge(g) for g in self._geometry))
 
     def _device_loop_kmax(self) -> int:

@@ -6,7 +6,12 @@ weights of the cell centres come from :class:`~.ops.knn.KNNIndex` on the
 device (the grid path selects through the ``topk_smallest`` kernel), the
 snapshots are contracted with them on the device
 (:func:`~.ops.interpolate.interpolate_data`), and the HDF5/XDMF files have
-the JAX package's (and the reference's) schema.
+the JAX package's (and the reference's) schema.  Where sharding is enabled
+(``parallel/mesh.sharding_enabled``) the CFD cloud is indexed over the
+mesh (``parallel.ShardedKNNIndex``, never the engine's index), the
+snapshots are interpolated with the cells sharded
+(``parallel.sharded_interpolate``) and the metric in float64 on the host;
+weights and fields equal the single-device ones bit for bit.
 """
 import logging
 from os import path
@@ -21,6 +26,8 @@ from .io.const import GRID, CONST, FACES, CENTERS, VERTICES, DATA
 from .io.data import Datawriter
 from .ops.interpolate import CHUNK_SIZE, interpolate_data, interpolate_numpy
 from .ops.knn import KNNIndex
+from .parallel import (ShardedKNNIndex, default_mesh, sharded_interpolate,
+                       sharding_enabled)
 
 logger = logging.getLogger(__name__)
 
@@ -104,6 +111,8 @@ class ExportData:
         # the engine's index over the same cloud, if the caller kept it
         self._engine_knn = getattr(s_cube, "_knn_index", None)
         self._knn = None
+        # the mesh of the sharded route (None: one device)
+        self._mesh = None
         self._coord_shape = None
         self._w_centers = self._idx_centers = None
         self._w_vertices = self._idx_vertices = None
@@ -162,7 +171,8 @@ class ExportData:
         """kNN inverse-distance weights of the cell centres (and optionally
         vertices) in the original grid, on the device (reference
         ``_build_knn_cache``, ``export.py:403-444``); rebuilt only when the
-        CFD grid changes shape."""
+        CFD grid changes shape.  Under sharding the cloud is indexed over
+        the mesh, as the JAX package does (its ``export.py:193-216``)."""
         coordinates = np.asarray(coordinates)
         if (self._coord_shape is not None
                 and coordinates.shape != self._coord_shape):
@@ -172,7 +182,11 @@ class ExportData:
             pts = coordinates.reshape(-1, self.n_dimensions)
             reuse = self._engine_knn
             probe = [0, pts.shape[0] // 2, -1]
-            if (isinstance(reuse, KNNIndex) and reuse.device == self.device
+            self._mesh = (default_mesh(self.device)
+                          if sharding_enabled(self.device) else None)
+            if self._mesh is not None:
+                self._knn = ShardedKNNIndex(pts, self._mesh)
+            elif (isinstance(reuse, KNNIndex) and reuse.device == self.device
                     and reuse.n_points == pts.shape[0]
                     and reuse.n_dim == pts.shape[1]
                     and np.allclose(pts[probe] - reuse._shift,
@@ -227,7 +241,7 @@ class ExportData:
 
         if not self._interpolated_metric:
             t0 = time()
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self._mesh is None:
                 # on the card in f32, as the JAX package's device-resident
                 # weight cache does: no [M, k] readback
                 metric = torch.as_tensor(self._metric[:, None, None],
@@ -238,22 +252,27 @@ class ExportData:
                     chunk_size)[:, 0, 0].cpu().numpy()
             else:
                 # float64 on the host, as the JAX package's host cache does
-                w = self._w_centers.numpy()
-                self._metric = (w * self._metric[self._idx_centers.numpy()]
-                                ).sum(axis=1)
+                w = self._w_centers.cpu().numpy()
+                self._metric = (w * self._metric[
+                    self._idx_centers.cpu().numpy()]).sum(axis=1)
             self._interpolated_metric = True
             self.timings["t_metric"] += time() - t0
 
         t0 = time()
-        self._interpolated_fields.centers = interpolate_numpy(
-            self._w_centers, self._idx_centers, data, self.device,
-            chunk_size)
+        self._interpolated_fields.centers = self._interpolate(
+            self._w_centers, self._idx_centers, data, chunk_size)
         if self._interpolate_at_vertices:
-            self._interpolated_fields.vertices = interpolate_numpy(
-                self._w_vertices, self._idx_vertices, data, self.device,
-                chunk_size)
+            self._interpolated_fields.vertices = self._interpolate(
+                self._w_vertices, self._idx_vertices, data, chunk_size)
         self.timings["t_kernel"] += time() - t0
         return self._interpolated_fields.centers
+
+    def _interpolate(self, w, idx, data, chunk_size: int) -> np.ndarray:
+        """One interpolation: on the device, or on a mesh with the cells
+        sharded (the JAX package's ``_interpolate``)."""
+        if self._mesh is not None:
+            return sharded_interpolate(w, idx, data, self._mesh, chunk_size)
+        return interpolate_numpy(w, idx, data, self.device, chunk_size)
 
     # ------------------------------------------------------------------ #
     # HDF5 output                                                        #

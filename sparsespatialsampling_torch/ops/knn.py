@@ -103,12 +103,14 @@ def _weighted_sum(w: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _sort_neighbors(sq: torch.Tensor, idx: torch.Tensor):
+def _sort_neighbors(sq: torch.Tensor, idx: torch.Tensor, *payload):
     """Canonical neighbour order: ascending ``(sq, idx)`` lexicographic
-    (two stable sorts, minor key first)."""
+    (two stable sorts, minor key first); each ``payload`` tensor of the
+    same shape is permuted along."""
     idx_s, o1 = torch.sort(idx, dim=1, stable=True)
     sq_s, o2 = torch.sort(torch.gather(sq, 1, o1), dim=1, stable=True)
-    return sq_s, torch.gather(idx_s, 1, o2)
+    return (sq_s, torch.gather(idx_s, 1, o2)) + tuple(
+        torch.gather(torch.gather(p, 1, o1), 1, o2) for p in payload)
 
 
 def _idw(sq: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -154,6 +156,25 @@ def _tile_select(q, points, points_sq, t0: int, tile_n: int, kk: int):
     return s, sel.long() + t0
 
 
+def _score_candidates(q, points, points_sq, kk: int, tile_n: int):
+    """The ``kk`` best of ``points [N, d]`` for each query of ``q`` by the
+    ranking score, over tiles of ``tile_n`` points (the last may be
+    partial): ``(score [Q, kk], idx [Q, kk] int64)``, ascending, ties to
+    the lower index (``kk <= N``).  Entries scored +inf carry some tile's
+    column 0 (:func:`_tile_select`)."""
+    cand_s, cand_i = [], []
+    for t0 in range(0, points.shape[0], tile_n):
+        s, i = _tile_select(q, points, points_sq, t0, tile_n, kk)
+        cand_s.append(s)
+        cand_i.append(i)
+    if len(cand_s) == 1:
+        return cand_s[0], cand_i[0]
+    # the kk best of the tiles' candidates; tiles are in ascending order,
+    # so equal scores keep the lower index
+    s, sel = _selector(kk)(torch.cat(cand_s, dim=1), kk)
+    return s, torch.gather(torch.cat(cand_i, dim=1), 1, sel.long())
+
+
 def _search(queries, points, points_sq, k: int, tile_n: int, tile_q: int):
     """Exact top-k of ``queries [Q, d]`` over ``points [N, d]`` (N a multiple
     of ``tile_n``; pad rows carry ``points_sq = +inf``).  Returns
@@ -166,18 +187,7 @@ def _search(queries, points, points_sq, k: int, tile_n: int, tile_q: int):
     sq_out, idx_out = [], []
     for lo in range(0, queries.shape[0], tile_q):
         q = queries[lo:lo + tile_q]
-        cand_s, cand_i = [], []
-        for t0 in range(0, n, tile_n):
-            s, i = _tile_select(q, points, points_sq, t0, tile_n, kk)
-            cand_s.append(s)
-            cand_i.append(i)
-        if len(cand_s) > 1:
-            # the kk best of the tiles' candidates; tiles are in ascending
-            # order, so equal scores keep the lower index
-            s, sel = _selector(kk)(torch.cat(cand_s, dim=1), kk)
-            best = torch.gather(torch.cat(cand_i, dim=1), 1, sel.long())
-        else:
-            s, best = cand_s[0], cand_i[0]
+        s, best = _score_candidates(q, points, points_sq, kk, tile_n)
         best = best.masked_fill(s == float("inf"), pad)
         # exact distances of the widened set, canonical re-rank, keep k
         sq = _sqsum(q[:, None, :] - points[best])
@@ -478,12 +488,14 @@ def _topk_canonical(d2, cand, k: int):
     ``lax.top_k(-d2)``), their candidate ids, the ascending ``(sq, idx)``
     sort, the first k.  The slack lets a distance tie at the k-th place
     resolve by point index instead of by slot.  Returns ``(sq [Q, k],
-    idx [Q, k] int64)``."""
+    idx [Q, k] int64, sel [Q, k] int64)``, ``sel`` the slot of each (for
+    value gathers)."""
     kk = min(k + 8, d2.shape[1])
     sq, sel = _selector(kk)(d2, kk)
-    idx = torch.gather(cand, 1, sel.long()).long()
-    sq, idx = _sort_neighbors(sq, idx)
-    return sq[:, :k], idx[:, :k]
+    sel = sel.long()
+    idx = torch.gather(cand, 1, sel).long()
+    sq, idx, sel = _sort_neighbors(sq, idx, sel)
+    return sq[:, :k], idx[:, :k], sel[:, :k]
 
 
 def _blocked_topk(queries, grid: dict, k: int, radius: int = 1):
@@ -494,7 +506,7 @@ def _blocked_topk(queries, grid: dict, k: int, radius: int = 1):
     Radius 1 is the JAX package's ``_grid_query_kernel``; radius 4 its
     ring rescue."""
     d2, cand, margin_sq, ovf_nb = _grid_candidates(queries, grid, radius)
-    sq, idx = _topk_canonical(d2, cand, k)
+    sq, idx, _ = _topk_canonical(d2, cand, k)
     sq_max = sq.max(dim=1).values
     ok = ((sq_max <= margin_sq)
           & ~_overflow_contaminated(queries, ovf_nb, sq_max, grid["origin"],
@@ -504,6 +516,20 @@ def _blocked_topk(queries, grid: dict, k: int, radius: int = 1):
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _morton_order(pts: np.ndarray) -> np.ndarray:
+    """Stable Morton order of a (centred) cloud ``[N, d]``: sorted position
+    → original point index (lexicographic on the first axis in 1D or above
+    3D)."""
+    depth = morton.MAX_DEPTH.get(pts.shape[1])
+    if depth is None:
+        return np.argsort(pts[:, 0], kind="stable")
+    lo = pts.min(axis=0)
+    extent = np.maximum(pts.max(axis=0) - lo, 1e-30)
+    grid = np.clip(((pts - lo) / extent * ((1 << depth) - 1)).astype(
+        np.uint64), 0, (1 << depth) - 1)
+    return np.argsort(morton.encode(grid), kind="stable")
 
 
 class KNNIndex:
@@ -546,7 +572,7 @@ class KNNIndex:
         # Morton order: grid cells hold contiguous index ranges and the
         # full-scan tiles stay spatially coherent; ``_perm`` maps sorted
         # position → original point index
-        self._perm = np.argsort(self._morton_codes(centered), kind="stable")
+        self._perm = _morton_order(centered)
         sorted_pts = centered[self._perm]
 
         # +1 guarantees a pad row: the index ``n_points`` always exists
@@ -572,16 +598,6 @@ class KNNIndex:
         self._values = None
         if values is not None:
             self.set_values(values)
-
-    def _morton_codes(self, pts: np.ndarray) -> np.ndarray:
-        lo = pts.min(axis=0)
-        extent = np.maximum(pts.max(axis=0) - lo, 1e-30)
-        depth = morton.MAX_DEPTH.get(self.n_dim)
-        if depth is None:  # 1D or >3D: lexicographic order
-            return pts[:, 0]
-        grid = np.clip(((pts - lo) / extent * ((1 << depth) - 1)).astype(
-            np.uint64), 0, (1 << depth) - 1)
-        return morton.encode(grid)
 
     def _build_grid(self, sorted_pts: np.ndarray) -> None:
         """Bucket grid over the sorted cloud: the blocked layout (each

@@ -8,9 +8,9 @@ card) and return numpy arrays.  The OpenFOAM loaders depend on
 ``flowtorch`` and are gated — they raise a clear ImportError when flowtorch
 is unavailable instead of breaking the package import.
 
-The JAX package's ``compute_svd`` shards the rows over a device mesh above
-the randomized-SVD threshold (``distributed_rsvd``); the port has only the
-single-device route so far.
+Above the randomized-SVD threshold, ``compute_svd`` shards the rows over
+the mesh (``parallel.distributed_rsvd``) where sharding is enabled, as the
+JAX package does.
 """
 import logging
 from time import perf_counter
@@ -25,6 +25,7 @@ from .io.const import CONST
 from .ops.svd import (economy_svd_device, randomized_svd_device,
                       optimal_rank, optimal_rank_sketched, frobenius_sq)
 from .ops.dmd import exact_dmd
+from .parallel import distributed_rsvd_device, make_mesh, sharding_enabled
 
 logger = logging.getLogger(__name__)
 
@@ -94,7 +95,13 @@ def compute_svd(data_matrix, cell_area, rank: int = None,
         # dominates; sketch generously when no rank was requested and
         # truncate by the optimal-rank criterion afterwards
         sketch = rank if rank is not None else min(stacked.shape[1], 256)
-        u, s, v = randomized_svd_device(stacked, sketch)
+        if sharding_enabled(dev):
+            # rows sharded over the mesh, the Gram sums on its root
+            u, s, v = distributed_rsvd_device(stacked, sketch,
+                                              make_mesh(device=dev))
+            u = u.to(dev)
+        else:
+            u, s, v = randomized_svd_device(stacked, sketch)
         s, v = s.cpu().numpy(), v.cpu().numpy()
         if rank is None:
             # Gavish-Donoho needs the FULL spectrum's median; the sketch only

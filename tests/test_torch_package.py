@@ -31,7 +31,8 @@ def test_imports_without_jax():
             "import sparsespatialsampling_torch, "
             "sparsespatialsampling_torch.engine.tree, "
             "sparsespatialsampling_torch.export, "
-            "sparsespatialsampling_torch.ops.knn; "
+            "sparsespatialsampling_torch.ops.knn, "
+            "sparsespatialsampling_torch.parallel; "
             "assert 'sparsespatialsampling_tpu' not in sys.modules")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -74,6 +75,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                     device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tpkg.ExportData(s3, write_times=["0"])
+
+
+def test_cpu_path_takes_no_mesh(tmp_path):
+    """With ``VIRTUAL_SHARDS`` and ``DISABLE_SHARDING`` at their defaults
+    the CPU takes the single-device path: no mesh in the engine or the
+    export, the single-device index, a single-device epoch core."""
+    from sparsespatialsampling_torch.parallel import mesh
+    assert mesh.VIRTUAL_SHARDS is None and not mesh.DISABLE_SHARDING
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(size=(500, 2))
+    geoms = [tpkg.CubeGeometry("domain", True, [0, 0], [1, 1])]
+    s3 = tpkg.SparseSpatialSampling(xy, xy[:, 0], geoms,
+                                    save_path=str(tmp_path), save_name="x",
+                                    uniform_levels=2, min_metric=0.5,
+                                    device="cpu")
+    assert s3._sampling._mesh is None
+    s3.execute_grid_generation()
+    assert type(s3._knn_index) is KNNIndex
+    assert s3.data_final_mesh["epoch_stats"]["core"] == "full"
+    exp = tpkg.ExportData(s3, write_times=["0"], device="cpu")
+    exp.interpolate(xy, xy[:, :1, None])
+    assert exp._mesh is None and exp._knn is s3._knn_index
 
 
 class _CudaStandIn:
