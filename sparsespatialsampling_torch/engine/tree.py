@@ -1649,8 +1649,11 @@ class SamplingTree:
         if depth > self._max_depth:
             raise ValueError(f"Refinement depth {depth} exceeds the lattice "
                              f"limit {self._max_depth}.")
+        split = {"t_keys": time()}
         keys = morton.node_keys(coords, level, self._offsets, depth)
+        split["t_unique"] = time()
         unique_keys, inverse = np.unique(keys.ravel(), return_inverse=True)
+        split["t_emit"] = time()
         idx_dtype = (np.int32 if unique_keys.size < np.iinfo(np.int32).max
                      else np.int64)
         self.face_ids = inverse.reshape(keys.shape).astype(idx_dtype)
@@ -1661,6 +1664,15 @@ class SamplingTree:
         self.all_centers = self._centers_of(coords, level)
         self.all_levels = level.astype(np.int64)[:, None]
         self._times["t_end_renumber"] = time()
+        # seconds of the renumbering's parts (the JAX package's keys): pre
+        # = the alive cells, keys = the corner keys, unique = the node
+        # dedup sort, emit = face ids and the f64 nodes and centres
+        ts, te = self._times["t_start_renumber"], self._times["t_end_renumber"]
+        self._times["renumber_split"] = {
+            "t_keys": round(split["t_unique"] - split["t_keys"], 4),
+            "t_unique": round(split["t_emit"] - split["t_unique"], 4),
+            "t_emit": round(te - split["t_emit"], 4),
+            "t_pre": round(split["t_keys"] - ts, 4)}
 
     def _create_mesh_info(self, counter: int) -> None:
         """Mesh statistics + phase timings (reference ``_create_mesh_info``,
@@ -1681,6 +1693,7 @@ class SamplingTree:
         info["epoch_stats"] = dict(self._epoch_stats)
         info["t_uniform"] = t["t_end_uniform"] - t["t_start_uniform"]
         info["t_renumbering"] = t["t_end_renumber"] - t["t_start_renumber"]
+        info["renumber_split"] = t.get("renumber_split", {})
         info["adaptive_split"] = t.get("adaptive_split", {})
         info["geometry_split"] = dict(t["geometry_split"])
         if t["t_end_geometry"] > 0:
@@ -1689,6 +1702,14 @@ class SamplingTree:
         else:
             info["t_geometry"] = None
             info["t_adaptive"] = t["t_start_renumber"] - t["t_start_adaptive"]
+
+    # ------------------------------------------------------------------ #
+    # introspection                                                      #
+    # ------------------------------------------------------------------ #
+    def __len__(self) -> int:
+        """The cells created so far, parents and removed cells included
+        (the JAX package's ``_n_cells``)."""
+        return self._n_cells
 
     def __str__(self) -> str:
         info = self.data_final_mesh
@@ -1710,6 +1731,18 @@ class SamplingTree:
             """.format(int(self._alive.sum()), self._current_min_level,
                        self._current_max_level, self._metric[-1] * 100)]
         return "\n\t\t\t\t".join(message)
+
+    @property
+    def n_dimensions(self) -> int:
+        return self._n_dimensions
+
+    @property
+    def width(self) -> float:
+        return self._width
+
+    @property
+    def geometry(self) -> list:
+        return self._geometry
 
     def _print_settings(self) -> None:
         if self._n_cells_max is not None:

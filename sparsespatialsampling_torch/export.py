@@ -1,21 +1,33 @@
 """Interpolate CFD fields onto the S³ grid and export them to HDF5/XDMF.
 
 Port of the JAX package's ``export.py`` (reference ``ExportData``,
-``sparseSpatialSampling/export.py:40-319``): the kNN inverse-distance
-weights of the cell centres come from :class:`~.ops.knn.KNNIndex` on the
-device (the grid path selects through the ``topk_smallest`` kernel), the
-snapshots are contracted with them on the device
-(:func:`~.ops.interpolate.interpolate_data`), and the HDF5/XDMF files have
-the JAX package's (and the reference's) schema.  Where sharding is enabled
-(``parallel/mesh.sharding_enabled``) the CFD cloud is indexed over the
-mesh (``parallel.ShardedKNNIndex``, never the engine's index), the
-snapshots are interpolated with the cells sharded
-(``parallel.sharded_interpolate``) and the metric in float64 on the host;
-weights and fields equal the single-device ones bit for bit.
+``sparseSpatialSampling/export.py:40-319``).  The kNN of the cell centres
+runs on the device (:class:`~.ops.knn.KNNIndex`; the grid path selects
+through the ``topk_smallest`` kernel), and :attr:`ExportData.INTERP`
+chooses what follows, as the JAX package's ``S3_TPU_INTERP`` does:
+
+- ``"host"`` (the default): only the ``[Q, k]`` indices come back, the
+  weights are computed in numpy (``KNNIndex.weights``), the metric is
+  interpolated in float64 on the host, and the snapshots are contracted by
+  one scipy CSR product (``ops/interpolate.interpolate_host``).  Every
+  HDF5 dataset is then the JAX package's bytes, on every device.  The
+  cache may come from the prefetch thread of
+  ``SparseSpatialSampling.execute_grid_generation``.
+- ``"device"``: the weights stay on the device (``weights_device``), and
+  the metric and the snapshots are contracted there in float32
+  (``ops/interpolate.interpolate_data``).
+
+Where sharding is enabled (``parallel/mesh.sharding_enabled``) the CFD
+cloud is indexed over the mesh (``parallel.ShardedKNNIndex``, the JAX
+package's sharded weights), the metric is interpolated in float64 on the
+host and the snapshots with the cells sharded
+(``parallel.sharded_interpolate``, each row summed as the single device
+sums it), on either route.  The HDF5/XDMF files have the JAX package's
+(and the reference's) schema.
 """
 import logging
 from os import path
-from time import time
+from time import perf_counter, time
 from typing import Union
 
 import numpy as np
@@ -24,7 +36,9 @@ import torch
 from ._device import resolve_device
 from .io.const import GRID, CONST, FACES, CENTERS, VERTICES, DATA
 from .io.data import Datawriter
-from .ops.interpolate import CHUNK_SIZE, interpolate_data, interpolate_numpy
+from .ops.interpolate import (CHUNK_SIZE, add_interp_counts,
+                              build_host_weight_cache, interpolate_data,
+                              interpolate_host)
 from .ops.knn import KNNIndex
 from .parallel import (ShardedKNNIndex, default_mesh, sharded_interpolate,
                        sharding_enabled)
@@ -43,6 +57,11 @@ class Fields:
 
 class ExportData:
     """Interpolate original snapshots onto the S³ grid and write HDF5/XDMF."""
+
+    # the interpolation route, read when an instance is made (the JAX
+    # package's S3_TPU_INTERP): "host" or "device" (see the module's
+    # docstring)
+    INTERP = "host"
 
     def __init__(self, s_cube, write_new_file_for_each_field: bool = False,
                  n_jobs: int = None, n_neighbors: int = None,
@@ -108,18 +127,33 @@ class ExportData:
 
         self._n_neighbors = (n_neighbors if n_neighbors is not None
                              else (8 if self.n_dimensions == 2 else 26))
+        self._interp_path = self.INTERP
         # the engine's index over the same cloud, if the caller kept it
         self._engine_knn = getattr(s_cube, "_knn_index", None)
+        # the host weight cache of the cell centres that
+        # execute_grid_generation builds in a worker thread, if any
+        self._prefetch = getattr(s_cube, "_knn_prefetch", None)
         self._knn = None
         # the mesh of the sharded route (None: one device)
         self._mesh = None
         self._coord_shape = None
-        self._w_centers = self._idx_centers = None
-        self._w_vertices = self._idx_vertices = None
-        # cumulative seconds across export() calls, and the exact-fallback
-        # rows of the weight queries
-        self.timings = {"t_weights": 0.0, "t_metric": 0.0, "t_kernel": 0.0,
-                        "t_h5": 0.0, "n_fallback": 0}
+        # True: the weights are device tensors (the device route); False:
+        # numpy arrays with their CSR operators (the host route)
+        self._cache_device = False
+        self._w_centers = self._idx_centers = self._op_centers = None
+        self._w_vertices = self._idx_vertices = self._op_vertices = None
+        # cumulative seconds across export() calls: t_weights (the weight
+        # cache), t_upload (snapshots to the device), t_metric, t_kernel
+        # (the contractions), t_readback (results to the host), t_h5;
+        # interp_bytes and interp_outputs count the contractions' traffic
+        # and values, n_fallback the exact-fallback rows of the weight
+        # queries, and prefetch says where the centres' host cache came
+        # from: "consumed" (the prefetch thread), "built" (here) or "off"
+        # (no host cache)
+        self.timings = {"t_weights": 0.0, "t_upload": 0.0, "t_metric": 0.0,
+                        "t_kernel": 0.0, "t_readback": 0.0, "t_h5": 0.0,
+                        "interp_bytes": 0.0, "interp_outputs": 0,
+                        "n_fallback": 0, "prefetch": "off"}
 
     def export(self, coordinates, data, field_name: str,
                n_snapshots_total: int = None, chunk_size: int = None) -> None:
@@ -169,10 +203,10 @@ class ExportData:
     # ------------------------------------------------------------------ #
     def _build_knn_cache(self, coordinates) -> None:
         """kNN inverse-distance weights of the cell centres (and optionally
-        vertices) in the original grid, on the device (reference
-        ``_build_knn_cache``, ``export.py:403-444``); rebuilt only when the
-        CFD grid changes shape.  Under sharding the cloud is indexed over
-        the mesh, as the JAX package does (its ``export.py:193-216``)."""
+        vertices) in the original grid (reference ``_build_knn_cache``,
+        ``export.py:403-444``); rebuilt only when the CFD grid changes
+        shape.  Under sharding the cloud is indexed over the mesh, as the
+        JAX package does (its ``export.py:193-216``)."""
         coordinates = np.asarray(coordinates)
         if (self._coord_shape is not None
                 and coordinates.shape != self._coord_shape):
@@ -194,13 +228,46 @@ class ExportData:
                 self._knn = reuse   # the engine indexed the same cloud
             else:
                 self._knn = KNNIndex(pts, device=self.device)
-        self._w_centers, self._idx_centers = self._knn.weights_device(
-            self._centers, self._n_neighbors)
-        self.timings["n_fallback"] += self._knn.last_fallback
-        if self._interpolate_at_vertices:
-            self._w_vertices, self._idx_vertices = self._knn.weights_device(
-                self._vertices, self._n_neighbors)
+
+        k = self._n_neighbors
+        self._cache_device = (isinstance(self._knn, KNNIndex)
+                              and self._interp_path == "device")
+        if self._cache_device:
+            self._w_centers, self._idx_centers = self._knn.weights_device(
+                self._centers, k)
             self.timings["n_fallback"] += self._knn.last_fallback
+        else:
+            # the prefetch thread built this very cache when the engine's
+            # index is in use with the k it assumed (the JAX package's
+            # conditions); it is joined before the cache is read, and
+            # consumed once
+            got = None
+            pf = self._prefetch
+            if (pf is not None and pf["thread"] is not None
+                    and self._knn is self._engine_knn and pf["k"] == k):
+                pf["thread"].join()
+                got = pf["data"].pop("centers", None)
+                pf["thread"] = None
+            if got is not None and got[0].shape == (self._centers.shape[0],
+                                                    k):
+                self.timings["prefetch"] = "consumed"
+            else:
+                got = build_host_weight_cache(self._knn, self._centers, k)
+                self.timings["prefetch"] = "built"
+            (self._w_centers, self._idx_centers, self._op_centers,
+             n_fallback) = got
+            self.timings["n_fallback"] += n_fallback
+
+        if self._interpolate_at_vertices:
+            if self._cache_device:
+                self._w_vertices, self._idx_vertices = \
+                    self._knn.weights_device(self._vertices, k)
+                self.timings["n_fallback"] += self._knn.last_fallback
+            else:
+                (self._w_vertices, self._idx_vertices, self._op_vertices,
+                 n_fallback) = build_host_weight_cache(self._knn,
+                                                       self._vertices, k)
+                self.timings["n_fallback"] += n_fallback
         self._initialized_weights = True
 
     def interpolate(self, coordinates, data,
@@ -213,8 +280,8 @@ class ExportData:
 
         :param coordinates: coordinates of the original CFD grid ``[N, d]``
         :param data: field data ``[N, C, S]`` (or ``[N, S]`` for a scalar)
-        :param chunk_size: cells interpolated per device call (as in
-            :meth:`export`)
+        :param chunk_size: cells contracted per device call (as in
+            :meth:`export`; the host route makes one call)
         :return: the field at the cell centres, ``[M, C, S]`` float32
         """
         chunk_size = CHUNK_SIZE if chunk_size is None else int(chunk_size)
@@ -234,6 +301,15 @@ class ExportData:
                            "[N_cells, 1, N_snapshots].")
             data = data[:, None, :]
 
+        # the device route ships the snapshots before the weight build, as
+        # the JAX package does
+        if self._interp_path == "device" and not sharding_enabled(
+                self.device):
+            t0 = perf_counter()
+            data = torch.from_numpy(np.ascontiguousarray(
+                data, dtype=np.float32)).to(self.device)
+            self.timings["t_upload"] += perf_counter() - t0
+
         if not self._initialized_weights:
             t0 = time()
             self._build_knn_cache(coordinates)
@@ -241,9 +317,8 @@ class ExportData:
 
         if not self._interpolated_metric:
             t0 = time()
-            if self.device.type == "cuda" and self._mesh is None:
-                # on the card in f32, as the JAX package's device-resident
-                # weight cache does: no [M, k] readback
+            if self._cache_device:
+                # float32 on the device, as the JAX package's device route
                 metric = torch.as_tensor(self._metric[:, None, None],
                                          dtype=torch.float32,
                                          device=self.device)
@@ -251,28 +326,43 @@ class ExportData:
                     self._w_centers, self._idx_centers, metric,
                     chunk_size)[:, 0, 0].cpu().numpy()
             else:
-                # float64 on the host, as the JAX package's host cache does
-                w = self._w_centers.cpu().numpy()
-                self._metric = (w * self._metric[
-                    self._idx_centers.cpu().numpy()]).sum(axis=1)
+                # float64 on the host, as the JAX package's host route
+                self._metric = (self._w_centers
+                                * self._metric[self._idx_centers]).sum(axis=1)
             self._interpolated_metric = True
             self.timings["t_metric"] += time() - t0
 
-        t0 = time()
         self._interpolated_fields.centers = self._interpolate(
-            self._w_centers, self._idx_centers, data, chunk_size)
+            self._w_centers, self._idx_centers, self._op_centers, data,
+            chunk_size)
         if self._interpolate_at_vertices:
             self._interpolated_fields.vertices = self._interpolate(
-                self._w_vertices, self._idx_vertices, data, chunk_size)
-        self.timings["t_kernel"] += time() - t0
+                self._w_vertices, self._idx_vertices, self._op_vertices,
+                data, chunk_size)
         return self._interpolated_fields.centers
 
-    def _interpolate(self, w, idx, data, chunk_size: int) -> np.ndarray:
-        """One interpolation: on the device, or on a mesh with the cells
-        sharded (the JAX package's ``_interpolate``)."""
+    def _interpolate(self, w, idx, op, data, chunk_size: int) -> np.ndarray:
+        """One interpolation: on a mesh with the cells sharded, on the
+        device (the device route), or as one CSR product on the host (the
+        JAX package's ``_interpolate``)."""
         if self._mesh is not None:
-            return sharded_interpolate(w, idx, data, self._mesh, chunk_size)
-        return interpolate_numpy(w, idx, data, self.device, chunk_size)
+            t0 = perf_counter()
+            out = sharded_interpolate(w, idx, data, self._mesh, chunk_size)
+            self.timings["t_kernel"] += perf_counter() - t0
+            return out
+        if self._cache_device:
+            t0 = perf_counter()
+            out = interpolate_data(w, idx, data, chunk_size)
+            if out.is_cuda:
+                torch.cuda.synchronize(out.device)
+            t1 = perf_counter()
+            out = out.cpu().numpy()
+            self.timings["t_kernel"] += t1 - t0
+            self.timings["t_readback"] += perf_counter() - t1
+            add_interp_counts(self.timings, w.shape[0], w.shape[1],
+                              data.shape[1] * data.shape[2])
+            return out
+        return interpolate_host(w, idx, data, timings=self.timings, op=op)
 
     # ------------------------------------------------------------------ #
     # HDF5 output                                                        #

@@ -20,6 +20,7 @@ constant is a multiplication by the constant's f32 reciprocal
 (:func:`reciprocal`), and sums over the coordinate axis run in axis order.
 Square roots are correctly rounded (:func:`sqrt`).
 """
+import hashlib
 import logging
 from abc import ABC, abstractmethod
 from functools import lru_cache
@@ -146,6 +147,31 @@ class GeometryObject(ABC):
     def bounding_box(self):
         """``(lower, upper)`` f64 corners of an axis-aligned box holding
         the geometry, or None where the geometry offers none."""
+        return None
+
+    @property
+    def cache_key(self):
+        """A stable digest of what decides the geometry's flags: its
+        class, polarity and defining constants (:meth:`_trace_constants`),
+        the JAX package's digest of the same values; ``None`` where a
+        subclass declares no constants."""
+        if getattr(self, "_cache_key_val", None) is None:
+            parts = self._trace_constants()
+            if parts is None:
+                return None
+            h = hashlib.blake2b(digest_size=16)
+            h.update(type(self).__name__.encode())
+            h.update(b"1" if self._keep_inside else b"0")
+            for p in parts:
+                a = np.asarray(p)
+                h.update(f"|{a.dtype}|{a.shape}|".encode())
+                h.update(np.ascontiguousarray(a).tobytes())
+            self._cache_key_val = h.hexdigest()
+        return self._cache_key_val
+
+    def _trace_constants(self):
+        """The arrays and scalars that decide :meth:`mask_points` (the JAX
+        package's own list for each class); ``None``: no digest."""
         return None
 
     @property

@@ -20,6 +20,8 @@ _PAIRS_PER_CHUNK = 1 << 22
 
 
 class GeometryCoordinates2D(GeometryObject):
+    __short_description__ = "2D coordinates for geometries"
+
     def __init__(self, name: str, keep_inside: bool, coordinates,
                  refine: bool = False, min_refinement_level: int = None):
         """
@@ -49,6 +51,9 @@ class GeometryCoordinates2D(GeometryObject):
         self._run = end[:, 0] - start[:, 0]
         rise = end[:, 1] - start[:, 1]
         self._rise = np.where(rise == 0.0, 1.0, rise)
+
+    def _trace_constants(self):
+        return [self._coordinates]
 
     def _inside(self, points):
         x_start = as_like(points, self._x_start)

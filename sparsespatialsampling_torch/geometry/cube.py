@@ -9,6 +9,8 @@ from .base import GeometryObject, as_like
 
 
 class CubeGeometry(GeometryObject):
+    __short_description__ = "rectangles (2D) or cubes (3D)"
+
     def __init__(self, name: str, keep_inside: bool, lower_bound: list,
                  upper_bound: list, refine: bool = False,
                  min_refinement_level: int = None):
@@ -21,6 +23,9 @@ class CubeGeometry(GeometryObject):
         self._upper = np.asarray(self._upper_bound, dtype=np.float64)
         self._main_width = float(np.max(np.abs(self._upper - self._lower)))
         self._center = (self._lower + self._upper) / 2.0
+
+    def _trace_constants(self):
+        return [self._lower, self._upper]
 
     def _inside(self, points):
         if points.shape[-1] != len(self._lower_bound):

@@ -13,6 +13,8 @@ from .base import GeometryObject, as_like, dot, fma, reciprocal, sqrt
 
 
 class CylinderGeometry3D(GeometryObject):
+    __short_description__ = "cylinders, conical objects and cones (3D)"
+
     def __init__(self, name: str, keep_inside: bool, position, radius,
                  refine: bool = False, min_refinement_level: int = None):
         """
@@ -35,6 +37,10 @@ class CylinderGeometry3D(GeometryObject):
         self._r_max = float(r_max)
         self._main_width = float(max(r_max, self._length))
         self._center = ends.mean(axis=0)
+
+    def _trace_constants(self):
+        return [np.asarray(self._position, dtype=np.float64),
+                np.asarray(self._radius, dtype=np.float64)]
 
     def _inside(self, points):
         rel = [points[:, a] - as_like(points, self._start[a])

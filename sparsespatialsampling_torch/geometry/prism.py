@@ -13,6 +13,8 @@ from .triangle import TriangleGeometry
 
 
 class PrismGeometry3D(GeometryObject):
+    __short_description__ = "triangular prisms, axis-aligned (3D)"
+
     def __init__(self, name: str, keep_inside: bool, positions,
                  refine: bool = False, min_refinement_level: int = None):
         """
@@ -41,6 +43,9 @@ class PrismGeometry3D(GeometryObject):
         self._main_width = float(max(self._length,
                                      self._section.main_width))
         self._center = np.concatenate(faces).mean(axis=0)
+
+    def _trace_constants(self):
+        return list(self._faces)
 
     def _inside(self, points):
         rel = [points[:, a] - as_like(points, self._origin[a])

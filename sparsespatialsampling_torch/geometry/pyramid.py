@@ -41,6 +41,8 @@ def _apex_index(vertices: np.ndarray) -> int:
 
 
 class PyramidGeometry3D(GeometryObject):
+    __short_description__ = "pyramids with quadrilateral base (3D)"
+
     def __init__(self, name: str, keep_inside: bool, nodes,
                  refine: bool = False, min_refinement_level: int = None):
         """
@@ -67,6 +69,9 @@ class PyramidGeometry3D(GeometryObject):
                                   vertices[[d1, o1, d0, apex]])]
         self._main_width = float(max(t.main_width for t in self._halves))
         self._center = np.mean([t.center for t in self._halves], axis=0)
+
+    def _trace_constants(self):
+        return [self._vertices]
 
     def _inside(self, points):
         return self._halves[0]._inside(points) | self._halves[1]._inside(

@@ -9,6 +9,8 @@ from .base import GeometryObject, as_like, dot
 
 
 class SphereGeometry(GeometryObject):
+    __short_description__ = "circles (2D) or spheres (3D)"
+
     def __init__(self, name: str, keep_inside: bool, position: list, radius,
                  refine: bool = False, min_refinement_level: int = None):
         super().__init__(name, keep_inside, refine, min_refinement_level)
@@ -18,6 +20,9 @@ class SphereGeometry(GeometryObject):
         self._check_geometry()
         self._main_width = float(self._radius)
         self._center = np.asarray(self._position, dtype=np.float64)
+
+    def _trace_constants(self):
+        return [self._center, float(self._radius)]
 
     def _inside(self, points):
         if points.shape[-1] != len(self._position):

@@ -611,12 +611,20 @@ class GeometrySTL3D(GeometryObject):
     def bounding_box(self):
         return self._lower_bound, self._upper_bound
 
+    def _trace_constants(self):
+        # every table is made from the (possibly decimated) triangles
+        return [self._triangles]
+
     def __getstate__(self):
         """Checkpoints pickle the geometry with its host tables only: the
         device copies are made again at first use."""
         state = self.__dict__.copy()
         state["_device_tables"] = {}
         return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._device_tables = {}
 
     def _check_geometry(self) -> None:
         if self._triangles.shape[0] == 0:

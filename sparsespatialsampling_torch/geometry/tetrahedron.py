@@ -30,6 +30,8 @@ def _outward_normals(corners: np.ndarray) -> np.ndarray:
 
 
 class TetrahedronGeometry3D(GeometryObject):
+    __short_description__ = "tetrahedra (3D)"
+
     def __init__(self, name: str, keep_inside: bool, positions,
                  refine: bool = False, min_refinement_level: int = None):
         """
@@ -43,6 +45,9 @@ class TetrahedronGeometry3D(GeometryObject):
         self._main_width = float((self._corners.max(axis=0)
                                   - self._corners.min(axis=0)).max())
         self._center = self._corners.mean(axis=0)
+
+    def _trace_constants(self):
+        return [self._corners]
 
     def _inside(self, points):
         outside = None

@@ -18,6 +18,8 @@ def _cross(edge, rel_x, rel_y):
 
 
 class TriangleGeometry(GeometryObject):
+    __short_description__ = "triangles (2D)"
+
     def __init__(self, name: str, keep_inside: bool, points,
                  refine: bool = False, min_refinement_level: int = None):
         """
@@ -36,6 +38,9 @@ class TriangleGeometry(GeometryObject):
         lower, upper = self.bounding_box()
         self._main_width = float(np.max(upper - lower))
         self._center = corners.mean(axis=0)
+
+    def _trace_constants(self):
+        return list(self._corners)
 
     def _inside(self, points):
         sides = [_cross(as_like(points, edge),

@@ -1,11 +1,20 @@
 """Inverse-distance interpolation of snapshot data onto the S³ grid.
 
-Port of the JAX package's ``ops/interpolate.py`` (``_interp_chunk``): the
-contraction ``out[m, c, s] = Σ_k w[m, k] · data[idx[m, k], c, s]`` as plain
-torch on the device, summed left to right over k — the order of the JAX
-package's CSR host contraction (``build_host_operator``).  One gather of
-``[M, C, S]`` per neighbour keeps the temporary at the size of the output.
+Port of the JAX package's ``ops/interpolate.py``.  Two contractions of
+``out[m, c, s] = Σ_k w[m, k] · data[idx[m, k], c, s]``:
+
+- the host route (the export's default): the ``[Q, k]`` weight cache is
+  packed once into a scipy CSR matrix (:func:`build_host_operator`) and
+  every snapshot batch is one sparse product (:func:`interpolate_host`),
+  the JAX package's ``build_host_operator``/``interpolate_host``, bit for
+  bit;
+- the device route: :func:`interpolate_data`, plain torch on the device,
+  summed left to right over k — the order of the CSR product's row sum.
+  One gather of ``[M, C, S]`` per neighbour keeps the temporary at the
+  size of the output.
 """
+from time import perf_counter
+
 import numpy as np
 import torch
 
@@ -31,10 +40,63 @@ def interpolate_data(weights: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def interpolate_numpy(weights, idx, data, device,
-                      chunk_size: int = CHUNK_SIZE) -> np.ndarray:
-    """:func:`interpolate_data` on host arrays: uploads ``data`` as f32 to
-    ``device`` and returns the result as numpy."""
-    data_t = torch.from_numpy(np.ascontiguousarray(
-        data, dtype=np.float32)).to(device)
-    return interpolate_data(weights, idx, data_t, chunk_size).cpu().numpy()
+def build_host_operator(w, idx, n_src: int):
+    """The ``[Q, k]`` weight cache as a scipy CSR matrix ``(Q, n_src)``:
+    every host interpolation is then one sparse product.  Each row keeps
+    the neighbours' ascending-distance order, so the f32 row sums run left
+    to right over k, as :func:`interpolate_data` sums."""
+    import scipy.sparse as sp   # deferred: only the host route needs it
+    w = np.asarray(w, dtype=np.float32)
+    idx = np.asarray(idx, dtype=np.int64)
+    q, k = w.shape
+    indptr = np.arange(q + 1, dtype=np.int64) * k
+    return sp.csr_matrix((w.ravel(), idx.ravel(), indptr), shape=(q, n_src))
+
+
+def build_host_weight_cache(knn_index, points, k: int):
+    """The host route's weight cache of one point set: ``(w [Q, k], idx
+    [Q, k], csr_op, n_fallback)`` from ``knn_index.weights``.  Both
+    ``ExportData`` and the prefetch thread of
+    ``SparseSpatialSampling.execute_grid_generation`` make their caches
+    here, so the two are the same bytes.  The fallback count is returned rather than read off
+    the index later, since a worker thread may build the cache."""
+    w, idx = knn_index.weights(points, k)
+    w = np.asarray(w)
+    idx = np.asarray(idx)
+    op = build_host_operator(w, idx, knn_index.n_points)
+    return w, idx, op, int(getattr(knn_index, "last_fallback", 0))
+
+
+def interpolate_host(w, idx, data, chunk_size: int = 16384,
+                     timings: dict = None, op=None) -> np.ndarray:
+    """The host contraction of ``data [N, C, S]`` (cast to f32) with a
+    numpy weight cache, as one CSR product → ``[M, C, S]`` f32.
+
+    :param chunk_size: accepted for the JAX package's signature; unused
+    :param timings: accumulates ``t_kernel`` (seconds), ``interp_bytes``
+        (the ``[M, k, C, S]`` gather plus the ``[M, C, S]`` result, f32)
+        and ``interp_outputs`` (``M·C·S``)
+    :param op: a prebuilt :func:`build_host_operator` matrix (built from
+        ``w`` and ``idx`` when None)
+    """
+    t0 = perf_counter()
+    data = np.asarray(data, dtype=np.float32)
+    if op is None:
+        op = build_host_operator(w, idx, data.shape[0])
+    m, k = op.shape[0], np.asarray(w).shape[1]
+    n = data.shape[0]
+    out = (op @ data.reshape(n, -1)).reshape((m,) + data.shape[1:])
+    if timings is not None:
+        timings["t_kernel"] = (timings.get("t_kernel", 0.0)
+                               + perf_counter() - t0)
+        add_interp_counts(timings, m, k, data.shape[1] * data.shape[2])
+    return out
+
+
+def add_interp_counts(timings: dict, m: int, k: int, c_s: int) -> None:
+    """Add one contraction of ``m`` rows, ``k`` neighbours and ``c_s``
+    values a row to ``timings``' ``interp_bytes`` and ``interp_outputs``
+    (the JAX package's accounting)."""
+    timings["interp_bytes"] = (timings.get("interp_bytes", 0.0)
+                               + m * (k + 1) * c_s * 4.0)
+    timings["interp_outputs"] = timings.get("interp_outputs", 0) + m * c_s

@@ -746,15 +746,46 @@ class KNNIndex:
     def weights_device(self, queries, k: int):
         """Normalised inverse-distance weights and neighbour indices
         (original point order) as device tensors ``(w [Q, k] f32,
-        idx [Q, k] int64)``."""
+        idx [Q, k] int64)``: the export's device route (the JAX package's
+        ``weights_device``)."""
         self._check_k(k)
         sq, idx = self._spatial_run(queries, k, "query")
         return _idw(sq), self._perm_dev[idx]
 
     def weights(self, queries, k: int):
-        """:meth:`weights_device` as numpy arrays."""
-        w, idx = self.weights_device(queries, k)
-        return w.cpu().numpy(), idx.cpu().numpy()
+        """Normalised inverse-distance weights and neighbour indices
+        (original point order) as numpy ``(w [Q, k] f32, idx [Q, k])``:
+        the JAX package's host weights (its ``ops/knn.py:1296-1330``).
+
+        The device selects the neighbours; where the JAX package's grid
+        could hold k (``k <= 3^d·C``, whichever search answered here) only
+        the indices come back and the distances are recomputed in numpy
+        from the f32 centred cloud, fallback rows included; else the full
+        scan's squared distances come back.  The arithmetic is numpy's
+        (its pairwise row sums), so the weights are the JAX package's bit
+        for bit on every device."""
+        self._check_k(k)
+        q64 = np.asarray(queries, dtype=np.float64) - self._shift
+        sq, idx = self._spatial_run(queries, k, "query")
+        idx = self._perm_dev[idx].cpu().numpy()
+        if (self._grid is not None and q64.shape[0] > 0
+                and k <= (3 ** self.n_dim) * self._grid["C"]):
+            nbr = self._points_host32[idx]
+            diff = nbr - q64[:, None, :].astype(np.float32)
+            dists = np.sqrt(np.maximum((diff * diff).sum(-1), 0.0))
+        else:
+            dists = np.sqrt(np.maximum(sq.cpu().numpy(), 0.0))
+        w = 1.0 / np.clip(dists, 1e-12, None)
+        w /= w.sum(axis=1, keepdims=True)
+        return w.astype(np.float32), idx
+
+    @property
+    def _points_host32(self) -> np.ndarray:
+        """The f32 centred cloud in original point order, cached (the
+        host distances of :meth:`weights`)."""
+        if getattr(self, "_points_host32_cache", None) is None:
+            self._points_host32_cache = self._points_host.astype(np.float32)
+        return self._points_host32_cache
 
     def predict(self, queries, k: int) -> np.ndarray:
         """Inverse-distance-weighted regression of the attached values at

@@ -73,6 +73,11 @@ class ShardedKNNIndex:
         sq = np.full(n_padded, np.inf, dtype=np.float32)
         sq[:self.n_points] = (sorted_pts.astype(np.float64) ** 2).sum(axis=1)
         self._setup(mesh, pts, sq, perm, centered, tile_n, tile_q)
+        # the JAX package's own centring, from the cloud cast to f32: the
+        # host distances of :meth:`weights`
+        p32 = np.asarray(points, dtype=np.float32)
+        shift32 = p32.mean(axis=0)
+        self._host32 = (p32 - shift32, shift32)
         if self.n_points >= self.GRID_MIN_POINTS and self.n_dim in (2, 3):
             self._build_grid(sorted_pts, pts)
         if values is not None:
@@ -336,7 +341,27 @@ class ShardedKNNIndex:
         sq, idx = self._spatial_run(queries, k, "query")
         return _idw(sq), self._perm_dev[idx]
 
-    weights = KNNIndex.weights
+    def weights(self, queries, k: int):
+        """Normalised inverse-distance weights and neighbour indices
+        (original point order) as numpy ``(w [Q, k] f32, idx [Q, k])``:
+        the JAX package's sharded weights (its ``parallel/knn.py:237-285``).
+        The mesh selects the neighbours; their distances are recomputed in
+        numpy from the cloud cast to f32 and centred on its f32 mean, the
+        queries cast to f32 and centred alike, as the JAX package's
+        sharded index holds its cloud.  Off exact distance ties the
+        weights are the JAX package's bit for bit; they are not the
+        single-device :meth:`KNNIndex.weights`, whose cloud is centred in
+        f64."""
+        self._check_k(k)
+        _, idx = self._spatial_run(queries, k, "query")
+        idx = self._perm_dev[idx].cpu().numpy()
+        centered, shift = self._host32
+        q = np.asarray(queries, dtype=np.float32) - shift
+        delta = q[:, None, :] - centered[idx]
+        dists = np.sqrt(np.maximum((delta * delta).sum(-1), 0.0))
+        w = 1.0 / np.clip(dists, 1e-12, None)
+        w /= w.sum(axis=1, keepdims=True)
+        return w, idx
 
     def predict(self, queries, k: int) -> np.ndarray:
         """Inverse-distance-weighted regression of the attached values."""
@@ -372,6 +397,9 @@ def sharded_index_from_reference(arrays: dict, mesh: Mesh
     idx._setup(mesh, pts.copy(), sq.copy(), np.arange(idx.n_points),
                np.asarray(arrays["_points_host"])[:idx.n_points],
                DEFAULT_TILE_N, DEFAULT_TILE_Q)
+    idx._host32 = (np.asarray(arrays["_points_host"],
+                              dtype=np.float32)[:idx.n_points],
+                   np.asarray(arrays["_shift"], dtype=np.float32))
     if "dil_pts" in arrays:
         rows = int(arrays["rows"])
         rpd = rows // mesh.size

@@ -9,6 +9,8 @@ numpy on the host; the engine runs its numerics on ``device`` (the card
 unless the caller asks for the CPU).
 """
 import logging
+import threading
+from contextlib import nullcontext
 from os import makedirs, path
 from os.path import join
 from time import perf_counter
@@ -39,6 +41,11 @@ def load_s_cube(file_path: str):
 class SparseSpatialSampling:
     """Execute the S³ algorithm: metric-driven adaptive quadtree/octree grid
     generation for CFD data reduction."""
+
+    # build the export's default weight cache in a worker thread while the
+    # checkpoint is written (the JAX package's S3_TPU_EXPORT_PREFETCH);
+    # a pipeline that never exports may turn it off
+    EXPORT_PREFETCH = True
 
     def __init__(self, coordinates, metric, geometry_objects: list,
                  save_path: str, save_name: str,
@@ -140,17 +147,64 @@ class SparseSpatialSampling:
 
         knn_index = self._sampling._knn
         self._sampling = None   # the checkpoint only needs the final grid
+        prefetch = self._start_prefetch(knn_index)
         t1 = perf_counter()
         _save_object(self, join(self.save_path,
                                 f"s_cube_{self.save_name}.pt"))
         self.data_final_mesh["t_checkpoint"] = perf_counter() - t1
         self._knn_index = knn_index
+        self._knn_prefetch = prefetch
+
+    def _start_prefetch(self, knn_index) -> dict:
+        """Start building the export's default weight cache of the cell
+        centres in a worker thread, overlapping the checkpoint write (the
+        JAX package's ``execute_grid_generation``, its
+        ``sparse_spatial_sampling.py:158-198``).  Only with one device,
+        the engine's :class:`KNNIndex` and the host route; k is
+        ``ExportData``'s default.  Returns ``{"thread", "k", "data",
+        "t_build"}``: ``ExportData`` joins the thread and takes
+        ``data["centers"]``, the tuple of
+        ``ops/interpolate.build_host_weight_cache``; ``t_build`` is the
+        thread's seconds.  A failure is logged, and ``ExportData`` then
+        builds the cache itself."""
+        from .export import ExportData
+        from .ops.interpolate import build_host_weight_cache
+        from .ops.knn import KNNIndex
+        from .parallel import sharding_enabled
+        prefetch = {"thread": None, "k": None, "data": {}, "t_build": None}
+        if not (self.EXPORT_PREFETCH and isinstance(knn_index, KNNIndex)
+                and not sharding_enabled(knn_index.device)
+                and ExportData.INTERP != "device"):
+            return prefetch
+        k = 8 if self.n_dimensions == 2 else 26
+        centers, device = self.centers, knn_index.device
+
+        def build():
+            t0 = perf_counter()
+            try:
+                # the CUDA work of this thread goes to the index's card
+                with (torch.cuda.device(device) if device.type == "cuda"
+                      else nullcontext()):
+                    prefetch["data"]["centers"] = build_host_weight_cache(
+                        knn_index, centers, k)
+            except Exception as exc:
+                logger.warning(f"the export's weight-cache prefetch "
+                               f"failed; ExportData builds the cache: "
+                               f"{exc!r}")
+            prefetch["t_build"] = perf_counter() - t0
+
+        prefetch["k"] = k
+        prefetch["thread"] = threading.Thread(target=build, daemon=True)
+        prefetch["thread"].start()
+        return prefetch
 
     def __getstate__(self):
-        """Checkpoints never carry the runtime kNN index (device tensors);
-        :class:`ExportData` rebuilds one on reload."""
+        """Checkpoints never carry the runtime kNN index (device tensors)
+        nor the prefetch (a thread and its cache); :class:`ExportData`
+        rebuilds them on reload."""
         state = self.__dict__.copy()
         state.pop("_knn_index", None)
+        state.pop("_knn_prefetch", None)
         return state
 
     def _check_input(self) -> None:

@@ -14,8 +14,9 @@ package's on the conftest's 8-device virtual CPU mesh, with
   own layout (``sharded_index_from_reference``) the JAX ``ShardedKNNIndex``'s
   indices off ties and its distances to rtol 1e-6; on a lattice's exact
   ties the canonical order, where the JAX package's score order differs.
-- ``sharded_interpolate``: bitwise the single-device interpolation, the
-  JAX package's to rtol 1e-6.
+- ``sharded_interpolate``: bitwise the single-device interpolation and
+  the host route's CSR product (``interpolate_host``), the JAX package's
+  mesh ``einsum`` to rtol 1e-6.
 - ``distributed_rsvd``: the JAX package's spectrum to 1e-3 and subspaces
   at cosines ≥ 0.999 (the sketches differ), no NaN on a rank-deficient
   input, orthonormal modes.
@@ -24,8 +25,11 @@ package's on the conftest's 8-device virtual CPU mesh, with
   iterations identical to the JAX package's sharded tree with the metric
   trace to rtol 1e-5, the device loop engaged.
 - The pipeline ``SparseSpatialSampling`` → ``ExportData`` →
-  ``compute_svd`` (the distributed route): faces, levels, weights and
-  fields bitwise the single-device run's.
+  ``compute_svd`` (the distributed route): faces, levels and the export's
+  neighbours bitwise the single-device run's; the export's weights the
+  JAX package's sharded weights bit for bit (the single device's to rtol
+  1e-4), its f64 metric and its fields bitwise the host formulas on those
+  weights.  ``ShardedKNNIndex.weights`` likewise.
 """
 import tempfile
 
@@ -42,7 +46,8 @@ import sparsespatialsampling_torch as tpkg  # noqa: E402
 from sparsespatialsampling_torch import parallel as tpar  # noqa: E402
 from sparsespatialsampling_torch import utils as tutils  # noqa: E402
 from sparsespatialsampling_torch.ops.interpolate import (  # noqa: E402
-    interpolate_numpy)
+    interpolate_data, interpolate_host)
+from chip_smoke import jax_sharded_weights  # noqa: E402
 from sparsespatialsampling_torch.ops.knn import KNNIndex  # noqa: E402
 from sparsespatialsampling_torch.parallel import mesh as tmesh  # noqa: E402
 
@@ -142,8 +147,14 @@ def test_sharded_query_equals_single_device(monkeypatch, d, grid, shards):
     if grid:
         # the grid answered most rows, the full route the rest
         assert 0 < sh.last_fallback < q.shape[0] // 2
-    for a, b in zip(one.weights(q, k), sh.weights(q, k)):
-        np.testing.assert_array_equal(b, a)
+    (ow, oi), (tw, ti) = one.weights(q, k), sh.weights(q, k)
+    np.testing.assert_array_equal(ti, oi)
+    # the mesh weighs as the JAX package's sharded index does, from the
+    # cloud cast to f32 before it is centred on its f32 mean; the single
+    # device from its cloud centred in f64.  The raw coordinates' f32
+    # rounding costs the short distances up to about 1e-4 of their size.
+    np.testing.assert_array_equal(tw, jax_sharded_weights(pts, q, oi))
+    np.testing.assert_allclose(tw, ow, rtol=1e-4)
     np.testing.assert_array_equal(sh.predict(q, k), one.predict(q, k))
     np.testing.assert_array_equal(sh.predict_host(q[:9], k),
                                   one.predict_host(q[:9], k))
@@ -243,8 +254,8 @@ def test_sharded_interpolate(shards):
     w = rng.uniform(size=(m, k)).astype(np.float32)
     w /= w.sum(axis=1, keepdims=True)
     idx = rng.integers(0, n_orig, size=(m, k))
-    one = interpolate_numpy(torch.from_numpy(w), torch.from_numpy(idx), data,
-                            "cpu", chunk_size=64)
+    one = interpolate_data(torch.from_numpy(w), torch.from_numpy(idx),
+                           torch.from_numpy(data), chunk_size=64).numpy()
     out = tpar.sharded_interpolate(w, idx, data,
                                    tpar.make_mesh(shards, device="cpu"),
                                    chunk_size=64)
@@ -253,6 +264,28 @@ def test_sharded_interpolate(shards):
     ref = jpar.sharded_interpolate(w, idx.astype(np.int32), data,
                                    jpar.make_mesh(shards))
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+@pytest.mark.parametrize("k", [8, 26])
+def test_sharded_interpolate_is_the_host_contraction(shards, k):
+    """Each shard sums its rows left to right over k: bitwise the host
+    route's CSR product (``interpolate_host``) on the same weights.  The
+    JAX package's mesh ``einsum`` sums in another order and differs from
+    it in part of the values (``test_sharded_interpolate`` holds the port
+    to it at rtol 1e-6)."""
+    rng = np.random.default_rng(k)
+    n_orig, m, c, s = 2000, 501, 3, 4
+    data = rng.normal(size=(n_orig, c, s)).astype(np.float32)
+    w = rng.uniform(size=(m, k)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    idx = rng.integers(0, n_orig, size=(m, k))
+    out = tpar.sharded_interpolate(w, idx, data,
+                                   tpar.make_mesh(shards, device="cpu"))
+    np.testing.assert_array_equal(out, interpolate_host(w, idx, data))
+    ref = jpar.sharded_interpolate(w, idx.astype(np.int32), data,
+                                   jpar.make_mesh(shards))
+    assert (ref != out).any()
 
 
 # ---------------------------------------------------------------------- #
@@ -405,12 +438,16 @@ def test_sharded_engine_budget_and_balance(monkeypatch):
 # ---------------------------------------------------------------------- #
 # the pipeline                                                           #
 # ---------------------------------------------------------------------- #
+def _snapshots(pts, metric):
+    """Three modes: the metric's, and two of the coordinates."""
+    return np.stack([metric * (1 + 0.1 * i) + pts[:, 0] * np.sin(i)
+                     + pts[:, 1] ** 2 * np.cos(0.7 * i) for i in range(6)],
+                    axis=-1)[:, None, :].astype(np.float32)
+
+
 def _pipeline(pts, metric, d):
     s3 = _grid_run(tpkg, pts, metric, d, device="cpu")
-    # three modes: the metric's, and two of the coordinates
-    snaps = np.stack([metric * (1 + 0.1 * i) + pts[:, 0] * np.sin(i)
-                      + pts[:, 1] ** 2 * np.cos(0.7 * i) for i in range(6)],
-                     axis=-1)[:, None, :].astype(np.float32)
+    snaps = _snapshots(pts, metric)
     exp = tpkg.ExportData(s3, write_times=[str(i) for i in range(6)],
                           device="cpu")
     field = exp.interpolate(pts, snaps)
@@ -439,12 +476,22 @@ def test_sharded_pipeline(monkeypatch, d):
     assert sh[1]._mesh.size == 3
     for a, b in zip(_rows(one[0]), _rows(sh[0])):
         np.testing.assert_array_equal(b, a)
-    np.testing.assert_array_equal(sh[1]._w_centers.numpy(),
-                                  one[1]._w_centers.numpy())
-    np.testing.assert_array_equal(sh[1]._idx_centers.numpy(),
-                                  one[1]._idx_centers.numpy())
-    np.testing.assert_array_equal(sh[2], one[2])
-    np.testing.assert_array_equal(sh[1]._metric, one[1]._metric)
+    # the host route: the mesh's neighbours are the single device's; its
+    # weights are the JAX package's sharded weights (the cloud cast to f32
+    # before centring), the single device's its own (centred in f64), the
+    # same to 1e-4; the metric is the f64 host sum and the fields the
+    # single-device contraction of the mesh's weights, bit for bit
+    w, idx = sh[1]._w_centers, sh[1]._idx_centers
+    np.testing.assert_array_equal(idx, one[1]._idx_centers)
+    np.testing.assert_array_equal(
+        w, jax_sharded_weights(pts, one[0].centers, idx))
+    np.testing.assert_allclose(w, one[1]._w_centers, rtol=1e-4)
+    np.testing.assert_array_equal(sh[1]._metric,
+                                  (w * metric[idx]).sum(axis=1))
+    assert sh[1]._metric.dtype == one[1]._metric.dtype == np.float64
+    np.testing.assert_array_equal(
+        sh[2], interpolate_host(w, idx, _snapshots(pts, metric)))
+    np.testing.assert_allclose(sh[2], one[2], rtol=1e-4, atol=1e-6)
     (s1, u1, v1), (s2, u2, v2) = one[3], sh[3]
     np.testing.assert_allclose(s2, s1, rtol=1e-4)
     assert _cosines(v2, v1).min() >= 0.999

@@ -14,10 +14,11 @@ pure-numpy oracle.
   sweeps and the geometry refinement equal the JAX package's
   ``BatchedValidity(..., pre_select=True).from_cells`` on cells whose
   device-built nodes give other flags.
-- ``ExportData.export`` of both packages on the same grid writes the same
-  HDF5 grid datasets, field datasets (at centres and vertices) to rtol
-  1e-6, and an XDMF that parses; ``ExportData.interpolate`` returns the
-  IDW field without writing a file.
+- ``ExportData.export`` of both packages on the same grid (a 2D and a 3D
+  case) writes the same HDF5 datasets bit for bit, dtype included — grid,
+  constants, the f64 metric and the fields at centres and vertices — and
+  an XDMF that parses; ``ExportData.interpolate`` returns the IDW field
+  without writing a file.
 """
 import tempfile
 import xml.etree.ElementTree as ET
@@ -261,8 +262,9 @@ def _h5_items(path):
     return out
 
 
-def test_export_matches_jax(grids):
-    pts, metric, a, b = grids["2d-cells"]
+@pytest.mark.parametrize("case", ["2d-cells", "3d-void-sphere-refine"])
+def test_export_matches_jax(grids, case):
+    pts, metric, a, b = grids[case]
     n_snap = 3
     rng = np.random.default_rng(7)
     scalar = (metric[:, None] * (1 + 0.3 * rng.normal(size=n_snap))
@@ -283,14 +285,10 @@ def test_export_matches_jax(grids):
     ja = _h5_items(join(a.save_path, "g.h5"))
     tb = _h5_items(join(b.save_path, "g.h5"))
     assert sorted(tb) == sorted(ja)
+    assert tb["constant/metric"].dtype == np.float64
     for key in ja:
         assert tb[key].dtype == ja[key].dtype, key
-        if key.startswith(("grid/", "constant/levels",
-                           "constant/size_initial_cell")):
-            np.testing.assert_array_equal(tb[key], ja[key], err_msg=key)
-        else:
-            np.testing.assert_allclose(tb[key], ja[key], rtol=1e-6,
-                                       atol=1e-7, err_msg=key)
+        np.testing.assert_array_equal(tb[key], ja[key], err_msg=key)
     root = ET.parse(join(b.save_path, "g.xdmf")).getroot()
     assert len(root.findall(".//Grid[@GridType='Uniform']")) == n_snap
     loaded = tpkg.Dataloader(b.save_path, "g.h5").load_snapshot("u")
