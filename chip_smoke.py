@@ -92,11 +92,6 @@ Phases:
   25 000 points (``bench.synthetic_cylinder2d(calibrated=False)``, the
   full scan answers every query): 4 961 cells after 25 iterations, the
   JAX package's figures (``BENCH_r04.json``), 2:1 balanced;
-- ``device_loop_vs_host``: the ``cuda_vs_cpu`` case and ``mdl2d_25k`` on
-  the card with ``SamplingTree.DEVICE_LOOP`` on and off: identical cells,
-  levels and iterations, metric traces to rtol 1e-5; the device loop's
-  first window of the 3D case under ``torch.profiler`` (device time,
-  device and host operations per iteration);
 - ``svd_routes``: a seeded [600 000, 50] matrix on the card with four
   planted modes over 1e-3 noise through ``compute_svd(rank=None)``, which
   must take ``randomized_svd`` and the sketched rank; the top four values
@@ -121,7 +116,11 @@ Phases:
   largest lat-lon sphere on the exact route) and at three edge shapes
   ([1, 1003], [257, 1025], [999, 40001]: spans and point tiles left partly
   empty); points uniform, within 1e-4 of the sphere's radius, and on
-  triangle vertices and edges.  ``|Δw| ≤ 1e-4``, flags ``w > 0.5`` equal
+  triangle vertices and edges; and at ``stl3d``'s window batch of
+  16 384 rows with 15, 481 and 16 383 of them counted on the device (the
+  STL test's call), whose first rows must be the uncounted
+  kernel's bit for bit and the rest 0, and a count of 0.
+  ``|Δw| ≤ 1e-4``, flags ``w > 0.5`` equal
   at every point farther than 1e-5 from the mesh, and a shuffled batch and
   a prefix batch give each point bitwise the same ``w``; device times of
   the kernel and the plain version beside the operation bound; then the
@@ -136,6 +135,19 @@ Phases:
   and it is held against its plain version at the largest call of the run
   and of the windows;
   cells and iterations are pinned;
+- ``device_loop_vs_host``: the ``cuda_vs_cpu`` case, ``mdl2d_25k`` and
+  ``stl3d`` on the card on three routes: the device loops' windows as
+  replays of captured CUDA graphs (the default), their bodies run eagerly
+  (``SamplingTree._LOOP_GRAPHS = False``) and, for the first two, the
+  host loop (``DEVICE_LOOP = False``).  Graphs and eager body must give
+  the same rows and the metric trace bitwise, launch each kernel as often
+  and enqueue the same steps; the host loop the same cells, levels and
+  iterations, metric traces to rtol 1e-5.  The eager body's first window
+  and the replays of the graphs' first captured window run under
+  ``torch.profiler`` (device time, device and host operations per step,
+  busy share).  A body that reads a device value must fail its capture
+  with an error naming the key and the operation, and run no step
+  eagerly in its place;
 - ``stl_cuda_vs_cpu``: ``mask_points`` and ``check_cells`` (both modes,
   both polarities) of the 5 664-triangle sphere STL on 1 000 000 seeded
   points, on the card and on the CPU, by the exact route and by fast
@@ -162,7 +174,9 @@ Phases:
   the weights the JAX package's sharded weights, the metric and the
   fields the host route's formulas on them, bit for bit; ``svd_distributed``, ``svd_routes``' planted matrix through
   ``compute_svd`` over 4 shards (``distributed_rsvd``) to ``svd_routes``'
-  limits, its wall beside the single-device route's; ``mixed_mesh``, the
+  limits, its wall beside the single-device route's (``large`` also runs
+  ``large_single`` with the loop bodies eager and records both runs' peak
+  device memory); ``mixed_mesh``, the
   ``cuda_vs_cpu`` case over the mesh ``[cuda:0, cpu]``, rows and
   iterations identical to ``cuda_vs_cpu``'s (an operation that mixes
   devices without an explicit move raises there).  The kernel selects at
@@ -186,7 +200,12 @@ device-resident loop's windows, their iterations, the host iterations and
 why, why each window ended, reads back per iteration, and the other
 synchronising operations inside windows) and fails unless the loop ran at
 least 90 % of the iterations where it is eligible; ``blocked_layout``'s
-run must take the host loop.  Every grid phase that refines a geometry
+run must take the host loop.  It prints both loops' CUDA-graph counters
+(``graph_captures``, ``graph_replays``, ``eager_iterations`` by cause,
+``capture_s``) and fails unless, on one device, every window step was a
+replay but one eager warm-up for each key captured, with no other
+synchronising operation inside the windows (``stl3d`` included); a
+mesh's windows run eagerly.  Every grid phase that refines a geometry
 prints its geometry route (``geometry_route``: the geometry loop's
 windows and their levels, the host levels and why, why each window
 ended, reads back, both routes' walls and the other synchronising
@@ -444,37 +463,95 @@ def site_of(frame) -> str:
     return SITES.get(name, name)
 
 
-class KernelTap:
+class GraphTap:
+    """Records made while a window's CUDA graph is captured belong to that
+    graph (``engine/graphs.py``): a capture runs nothing, and each replay
+    runs them again.  Inside a ``with`` block, :meth:`note` adds a record
+    (a dict of counts) to ``self.totals`` outside a capture, or to the
+    graph being captured, whose records each of its replays adds to
+    ``self.totals``.  ``capturing`` says which."""
+
+    def __init__(self):
+        import weakref
+        from sparsespatialsampling_torch.engine import graphs
+        self._graphs = graphs
+        self._per_graph = weakref.WeakKeyDictionary()
+        self._bucket = None
+        self.totals = {}
+
+    @property
+    def capturing(self) -> bool:
+        return self._bucket is not None
+
+    def note(self, counts: dict) -> None:
+        into = self.totals if self._bucket is None else self._bucket
+        for key, n in counts.items():
+            into[key] = into.get(key, 0) + n
+
+    def __enter__(self):
+        cache, graph = self._graphs.WindowGraphs, self._graphs.WindowGraph
+        self._orig = (cache._capture, graph.replay)
+        capture, replay = self._orig
+        tap = self
+
+        def tapped_capture(obj, *args):
+            tap._bucket = {}
+            try:
+                g = capture(obj, *args)
+            finally:
+                bucket, tap._bucket = tap._bucket, None
+            tap._per_graph[g] = bucket
+            return g
+
+        def tapped_replay(g):
+            out = replay(g)
+            tap.note(tap._per_graph.get(g, {}))
+            return out
+        cache._capture, graph.replay = tapped_capture, tapped_replay
+        return self
+
+    def __exit__(self, *exc):
+        self._graphs.WindowGraphs._capture, self._graphs.WindowGraph.replay = \
+            self._orig
+
+
+class KernelTap(GraphTap):
     """Holds the largest input the selection kernel got at each call site
     during a main-path run, and counts the launches per site (wraps the
     module function the kNN calls).  A site's count is what the wrapper's
-    own launch counter gained during the site's calls.  It keeps
-    references, not copies, so the run's walls carry no extra work: each
-    input is a fresh tensor that nothing writes to after the selection.
-    It also counts the calls of ``_select_sorted``, the stable sort that
-    takes selections wider than the kernel's queue."""
+    own launch counter gained during the site's calls; a call captured in
+    a window's graph counts once for each replay (:class:`GraphTap`).  It
+    holds inputs of eager calls only, references, not copies, so the
+    run's walls carry no extra work: each is a fresh tensor that nothing
+    writes to after the selection (a captured call's input is the graph's
+    pool memory, which every replay rewrites).  It also counts the calls
+    of ``_select_sorted``, the stable sort that takes selections wider
+    than the kernel's queue."""
 
     def __init__(self):
+        super().__init__()
         from sparsespatialsampling_torch.ops import knn, topk
         self._topk, self._knn = topk, knn
-        self._orig = topk.topk_smallest
+        self._orig_topk = topk.topk_smallest
         self._orig_sorted = knn._select_sorted
-        self.inputs, self.launches = {}, {}
+        self.inputs = {}
+        self.launches = self.totals
         self.sorted_calls = 0
 
     def __enter__(self):
+        super().__enter__()
+
         def tapped(x, k):
             site = site_of(sys._getframe(1))
             held = self.inputs.get(site)
             # a CPU shard's selection runs the plain version: nothing to
             # hold against it
-            if x.is_cuda and (held is None
-                              or x.numel() > held[0].numel()):
+            if x.is_cuda and not self.capturing and (
+                    held is None or x.numel() > held[0].numel()):
                 self.inputs[site] = (x, k)
             before = self._topk.launches
-            out = self._orig(x, k)
-            self.launches[site] = (self.launches.get(site, 0)
-                                   + self._topk.launches - before)
+            out = self._orig_topk(x, k)
+            self.note({site: self._topk.launches - before})
             return out
 
         def sorted_tapped(x, kk):
@@ -485,8 +562,9 @@ class KernelTap:
         return self
 
     def __exit__(self, *exc):
-        self._topk.topk_smallest = self._orig
+        self._topk.topk_smallest = self._orig_topk
         self._knn._select_sorted = self._orig_sorted
+        super().__exit__(*exc)
 
 
 def reset_counts() -> None:
@@ -557,42 +635,112 @@ class SyncTap(WindowTap):
         return out
 
 
+def profile_rows(prof, steps: int, wall_s: float) -> dict:
+    """Per window step of a ``torch.profiler`` run: its device time, the
+    device operations (kernels, copies, memsets) and host operators it
+    issued; and the busy share, device time over the host-clock wall of
+    the profiled steps (the profiler slows the host, so that wall is not
+    the window's)."""
+    rows = prof.key_averages()
+    on_card = [e for e in rows if device_ms(e) > 0.0]
+    device = sum(map(device_ms, rows))
+    return {"steps": steps,
+            "device_ms_per_step": device / max(steps, 1),
+            "device_ops_per_step": sum(e.count for e in on_card)
+            / max(steps, 1),
+            "host_ops_per_step": sum(
+                e.count for e in rows if e.key.startswith("aten::"))
+            / max(steps, 1),
+            "profiled_wall_ms_per_step": wall_s * 1e3 / max(steps, 1),
+            "busy_share": device / max(wall_s * 1e3, 1e-9)}
+
+
 class WindowProfile(WindowTap):
     """``torch.profiler`` over the first window of the device loop run
-    inside it: the window's iterations, its device time, and the device
-    operations (kernels, copies, memsets) and host operators it issued,
-    each per iteration.  The profiler slows the host, so its wall is not
-    the window's."""
+    inside it that has steps to profile: every step of an eager window,
+    or the replays of a window's captured graph (``replays``: the steps
+    after its key's warm-up and capture), each per step
+    (:func:`profile_rows`)."""
 
     out = None
+
+    def __init__(self, replays: bool = False):
+        super().__init__()
+        self._replays = replays
 
     def around(self, run, args):
         if self.out is not None:
             return run(*args)
+        *head, step = args
+        cache, key = step.func.__self__, step.args[0]
+        state = {"prof": None, "steps": 0}
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            res = run(*args)
-            torch.cuda.synchronize()
-        rows = prof.key_averages()
-        on_card = [e for e in rows if device_ms(e) > 0.0]
-        its = max(res[0], 1)
-        self.out = {
-            "iterations": res[0],
-            "device_ms_per_iteration": sum(map(device_ms, rows)) / its,
-            "device_ops_per_iteration": sum(e.count for e in on_card) / its,
-            "host_ops_per_iteration": sum(
-                e.count for e in rows if e.key.startswith("aten::")) / its}
+
+        def profiled(body, row):
+            if state["prof"] is None and (not self._replays
+                                          or cache.captured(key)):
+                torch.cuda.synchronize()
+                state["prof"] = torch.profiler.profile(activities=acts)
+                state["prof"].__enter__()
+                state["t0"] = time.perf_counter()
+            if state["prof"] is not None:
+                state["steps"] += 1
+            return step(body, row)
+        try:
+            res = run(*head, profiled)
+        finally:
+            if state["prof"] is not None:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - state["t0"]
+                state["prof"].__exit__(None, None, None)
+        if state["prof"] is not None and state["steps"] > 1:
+            self.out = {"iterations": res[0],
+                        **profile_rows(state["prof"], state["steps"], wall)}
         return res
+
+
+def graph_counters(stats: dict) -> dict:
+    """A loop's CUDA-graph counters (``engine/graphs.py``): every step a
+    window enqueued is an eager iteration (for a cause) or a replay."""
+    return {"graph_captures": int(stats["captures"]),
+            "graph_replays": int(stats["replays"]),
+            "eager_iterations": int(stats["eager_iterations"]),
+            "eager_causes": {k: int(v) for k, v in
+                             stats["eager_causes"].items() if v},
+            "capture_s": float(stats["capture_s"])}
+
+
+def check_graphs(phase: str, route: dict, mesh: bool = False) -> None:
+    """With the graphs on (``SamplingTree._LOOP_GRAPHS``) and one device,
+    every window step is a replay but one eager warm-up for each key
+    captured; on a mesh every step is eager, for the mesh.  No other
+    operation inside the windows may synchronise."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    g = route
+    cause = ("mesh" if mesh else
+             "warmup" if SamplingTree._LOOP_GRAPHS else "off")
+    ok = g["eager_causes"].get(cause, 0) == g["eager_iterations"]
+    if cause == "warmup":
+        ok = ok and g["eager_iterations"] == g["graph_captures"]
+    else:
+        ok = ok and g["graph_replays"] == g["graph_captures"] == 0
+    if not mesh and g.get("other_syncs_in_windows", 0) not in (
+            0, "not measured"):
+        ok = False
+    if not ok:
+        raise AssertionError(f"{phase}: the windows did not run as graph "
+                             f"replays: {route}")
 
 
 def adaptive_route(s3, sync=None) -> dict:
     """Which route ran the adaptive iterations, from the engine's
     counters: the device loop's windows, the iterations they ran, the host
     iterations and why, why each window ended, the state uploads and rows
-    scattered on re-entry, and the reads back to the host per window
+    scattered on re-entry, the reads back to the host per window
     iteration (the engine's, and, with ``sync``, every other
-    synchronising operation inside the windows)."""
+    synchronising operation inside the windows), and the windows' CUDA
+    graphs (:func:`graph_counters`)."""
     info = s3.data_final_mesh
     st = info["epoch_stats"]
     w_iters = int(st["window_iters"])
@@ -605,7 +753,8 @@ def adaptive_route(s3, sync=None) -> dict:
            "rows_reuploaded": int(st["rows_reuploaded"]),
            "d2h_syncs": int(st["d2h_syncs"]),
            "d2h_syncs_per_window_iteration": st["d2h_syncs"] / max(w_iters, 1),
-           "window_wall_s": float(info["adaptive_split"]["t_window"])}
+           "window_wall_s": float(info["adaptive_split"]["t_window"]),
+           **graph_counters(st["graphs"])}
     if sync is not None:
         out["other_syncs_in_windows"] = (sync.syncs if sync.works
                                          else "not measured")
@@ -646,8 +795,8 @@ def geometry_route(s3, sync=None) -> dict:
     """Which route ran the geometry-refinement levels, from the engine's
     counters: the geometry loop's windows and their levels, the host
     levels and why, why each window ended, the reads back, the walls of
-    both routes (``geometry_split``) and, with ``sync``, every other
-    synchronising operation inside the windows."""
+    both routes (``geometry_split``), the windows' CUDA graphs and, with
+    ``sync``, every other synchronising operation inside the windows."""
     info = s3.data_final_mesh
     st = info["epoch_stats"]["geometry_route"]
     out = {"route": ("device_loop" if st["windows"] else "host_walk"
@@ -659,7 +808,8 @@ def geometry_route(s3, sync=None) -> dict:
            "host_fallback": dict(st["host_fallback"]),
            "window_exits": dict(st["window_exits"]),
            "d2h_syncs": int(st["d2h_syncs"]),
-           "split_s": {k: float(v) for k, v in info["geometry_split"].items()}}
+           "split_s": {k: float(v) for k, v in info["geometry_split"].items()},
+           **graph_counters(st["graphs"])}
     if sync is not None:
         out["other_syncs_in_windows"] = (sync.syncs if sync.works
                                          else "not measured")
@@ -971,9 +1121,11 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
     t["adaptive_route"] = adaptive_route(s3, sync)
     check_route(phase, t["adaptive_route"],
                 device_loop and SamplingTree.DEVICE_LOOP, mesh)
+    check_graphs(phase, t["adaptive_route"], mesh)
     if s3.data_final_mesh["t_geometry"] is not None:
         t["geometry_route"] = geometry_route(s3, geo_sync)
         check_geometry_route(phase, t["geometry_route"], geometry_loop_on(kw))
+        check_graphs(phase, t["geometry_route"], mesh)
     missing = [n for n in kernels if counts[n] == 0]
     missing += [s for s in sites if not tap.launches.get(s)]
     if missing:
@@ -1510,7 +1662,7 @@ def phase_mdl2d_25k(tmp: str) -> tuple:
     the device loop over the full-scan core (the cloud is under
     ``GRID_MIN_POINTS``).  The grid must be the JAX package's 4 961 cells
     after 25 iterations (``BENCH_r04.json``, and both of its loops on the
-    CPU).  Returns the phase's line, its launches and its grid."""
+    CPU).  Returns the phase's line and its launches."""
     xy, metric, bounds, geometries, kw = mdl_case(25_000)
     s3, _, _, t, counts, tap, _ = main_path_run(
         "mdl2d_25k", tmp, "mdl25k", xy, metric, geometries,
@@ -1523,7 +1675,7 @@ def phase_mdl2d_25k(tmp: str) -> tuple:
     check_expected("mdl2d_25k", out)
     out["unbalanced_neighbours"] = check_balanced("mdl2d_25k", s3, bounds)
     out["kernel_at_call_sites"] = check_sites(tap)
-    return out, counts, grid_key(s3)
+    return out, counts
 
 
 def compare_routes(what: str, loop: tuple, host: tuple) -> dict:
@@ -1539,40 +1691,127 @@ def compare_routes(what: str, loop: tuple, host: tuple) -> dict:
     return out
 
 
-def phase_device_loop_vs_host(tmp: str, mdl25k_key: tuple) -> dict:
-    """The ``cuda_vs_cpu`` case and the ``mdl2d_25k`` configuration on the
-    card with ``SamplingTree.DEVICE_LOOP`` on and off (the ``mdl2d_25k``
-    phase's run is the device-loop side of the second); the device-loop
-    run's first window is profiled (:class:`WindowProfile`)."""
-    from sparsespatialsampling_torch.engine.tree import SamplingTree
-    out = {"phase": "device_loop_vs_host"}
+def compare_bitwise(what: str, a: tuple, b: tuple) -> dict:
+    """Two runs of the same kernels in the same order: the same cells,
+    levels and iterations row for row, the metric trace bitwise."""
+    out = compare_grids(what, a, b)
+    if not (a[0].shape == b[0].shape and np.array_equal(a[0], b[0])
+            and np.array_equal(a[1], b[1]) and a[3].shape == b[3].shape
+            and np.array_equal(a[3].view(np.uint64), b[3].view(np.uint64))):
+        raise AssertionError(f"{what}: rows or metric traces differ")
+    out["rows_and_metric_trace_bitwise"] = True
+    return out
 
-    def run(name, pts, metric, geometries, loop, **kw):
-        SamplingTree.DEVICE_LOOP = loop
+
+ROUTES = {"graphs": (True, True), "eager_body": (True, False),
+          "host_loop": (False, True)}
+
+
+def check_failed_capture() -> dict:
+    """A window body that reads a device value cannot be captured: the
+    graph cache must raise, naming the key and the operation, and run
+    nothing eagerly in its place (the warm-up step before it is eager by
+    design)."""
+    from sparsespatialsampling_torch.engine import graphs
+    cache = graphs.WindowGraphs(torch.device("cuda"))
+    stats = graphs.new_stats()
+    x = torch.zeros(4, device="cuda")
+
+    def body():
+        x.add_(1.0)
+        if float(x.sum()) < 0:          # reads a device value: a sync
+            x.zero_()
+    key = ("probe", 4)
+    cache.step(key, body, lambda: x[:1].long(), stats)
+    try:
+        cache.step(key, body, lambda: x[:1].long(), stats)
+    except RuntimeError as exc:
+        msg = str(exc)
+    else:
+        raise AssertionError("a capture that reads a device value did not "
+                             "raise")
+    torch.cuda.synchronize()
+    out = {"raised": msg[:300], "eager_iterations": stats["eager_iterations"],
+           "x": float(x[0])}
+    if not ("'probe'" in msg and "float(x.sum())" in msg
+            and stats["eager_iterations"] == 1 and out["x"] == 1.0):
+        raise AssertionError(f"failed capture: {out}")
+    return out
+
+
+def phase_device_loop_vs_host(tmp: str, stl_path: str) -> dict:
+    """The ``cuda_vs_cpu`` case, ``mdl2d_25k`` and ``stl3d`` on the card
+    on three routes: the device loops' windows as graph replays (the
+    default), their bodies run eagerly (``SamplingTree._LOOP_GRAPHS =
+    False``), and the host loop (``DEVICE_LOOP = False``; ``stl3d``'s is
+    in ``geometry_loop_vs_host``).  The graphs must equal the eager body
+    row for row with the metric trace bitwise (the same kernels in the
+    same order) and launch each kernel as often; the host loop must give
+    the same grid.  The eager body's first window and the first window
+    replaying a captured graph are profiled (:class:`WindowProfile`)."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    out = {"phase": "device_loop_vs_host",
+           "failed_capture": check_failed_capture()}
+
+    def run(name, pts, metric, geometries, route, **kw):
+        SamplingTree.DEVICE_LOOP, SamplingTree._LOOP_GRAPHS = ROUTES[route]
         try:
-            with WindowProfile() as prof:
-                s3, _, _, t, _ = run_grid(tmp, name, pts, metric,
-                                          geometries, **kw)
+            with WindowProfile(replays=route == "graphs") as prof:
+                reset_counts()
+                s3, _, _, t, _ = run_grid(tmp, f"{name}_{route}", pts,
+                                          metric, geometries, **kw)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            rows = grid_rows(s3)
         finally:
-            SamplingTree.DEVICE_LOOP = True
+            SamplingTree.DEVICE_LOOP, SamplingTree._LOOP_GRAPHS = True, True
+        res = {**case_summary(s3, t), "launches": counts,
+               "adaptive_route": adaptive_route(s3),
+               "t_window_s": float(
+                   s3.data_final_mesh["adaptive_split"]["t_window"])}
+        if s3.data_final_mesh["t_geometry"] is not None:
+            res["geometry_route"] = geometry_route(s3)
         if prof.out is not None:
-            out[f"{name}_first_window_profile"] = prof.out
-        check_route(name, adaptive_route(s3), loop)
-        return grid_key(s3), {**case_summary(s3, t),
-                              "adaptive_route": adaptive_route(s3)}
+            res["window_profile"] = prof.out
+        check_route(f"{name} ({route})", res["adaptive_route"],
+                    route != "host_loop")
+        return rows, res
     xyz, metric, geometries, kw = compare_case()
-    keys = {}
-    for loop in (True, False):
-        route = "device_loop" if loop else "host_loop"
-        keys[loop], out[f"cuda_vs_cpu_case_{route}"] = run(
-            f"dlh_{route}", xyz, metric, geometries, loop, **kw)
-    out["cuda_vs_cpu_case"] = compare_routes(
-        "cuda_vs_cpu case, device and host loop", keys[True], keys[False])
-    xy, metric, _, geometries, kw = mdl_case(25_000)
-    host, out["mdl2d_25k_host"] = run("dlh_mdl", xy, metric, geometries,
-                                      False, **kw)
-    out["mdl2d_25k"] = compare_routes(
-        "mdl2d_25k, device and host loop", mdl25k_key, host)
+    xy, m25, _, g25, kw25 = mdl_case(25_000)
+    stl_pts, stl_metric, stl_geoms, stl_kw, _ = stl3d_case(stl_path)
+    cases = {"cuda_vs_cpu_case": (xyz, metric, geometries, kw, True),
+             "mdl2d_25k": (xy, m25, g25, kw25, True),
+             "stl3d": (stl_pts, stl_metric, stl_geoms, stl_kw, False)}
+    for name, (pts, met, geoms, ckw, host) in cases.items():
+        keys, res = {}, {}
+        for route in ROUTES if host else ("graphs", "eager_body"):
+            keys[route], res[route] = run(name, pts, met, geoms, route,
+                                          **ckw)
+        res["graphs_vs_eager_body"] = compare_bitwise(
+            f"{name}: graphs and eager body", keys["graphs"],
+            keys["eager_body"])
+        if res["graphs"]["launches"] != res["eager_body"]["launches"]:
+            raise AssertionError(f"{name}: launches under graphs "
+                                 f"{res['graphs']['launches']}, eager "
+                                 f"{res['eager_body']['launches']}")
+        # the same window steps: the eager body's, all but one warm-up a
+        # key replays under the graphs
+        for loop in ("adaptive_route", "geometry_route"):
+            if loop not in res["graphs"]:
+                continue
+            g, e = res["graphs"][loop], res["eager_body"][loop]
+            check_graphs(f"{name} ({loop})", g)
+            if g["graph_replays"] + g["eager_iterations"] != \
+                    e["eager_iterations"]:
+                raise AssertionError(f"{name}: {loop} steps differ between "
+                                     f"graphs {g} and eager body {e}")
+        if host:
+            res["graphs_vs_host_loop"] = compare_routes(
+                f"{name}: device and host loop", keys["graphs"],
+                keys["host_loop"])
+        if name in EXPECTED:
+            check_expected(name, res["graphs"])
+        out[name] = res
     return out
 
 
@@ -2086,17 +2325,37 @@ def winding_bound(m: int, t: int):
                                  "operations")
 
 
-def check_winding(p: torch.Tensor, tris: np.ndarray, seed: int,
-                  timed: bool = True) -> dict:
+def check_winding(p: torch.Tensor, count: int = None, tris: np.ndarray = None,
+                  seed: int = 0, timed: bool = True) -> dict:
     """Kernel against its plain version on the card on CUDA points ``p``
     and the f32 triangles ``tris``: ``|Δw| ≤ 1e-4``, flags ``w > 0.5``
     equal at every point farther than 1e-5 from the mesh, and a shuffled
     batch and a prefix batch bitwise equal point for point; CUDA-graph
-    device times."""
+    device times.  With ``count`` the kernel gets the batch ``p`` and the
+    count in device memory, as the STL test calls it: its first ``count``
+    rows are held so (and against the kernel on those rows alone,
+    bitwise), the rest must be 0; the times are the counted call's, its
+    bound that of the ``count`` rows, the plain version's time that of
+    the ``count`` rows alone."""
     from sparsespatialsampling_torch.ops import winding
-    m, t = p.shape[0], tris.shape[0]
     v = [torch.from_numpy(np.ascontiguousarray(tris[:, i], dtype=np.float32)
                           ).cuda() for i in range(3)]
+    batch = p
+    if count is not None:
+        cnt = torch.tensor([count], dtype=torch.int32, device="cuda")
+        got = winding.winding_number(batch, *v, count=cnt)
+        p = batch[:count].contiguous()
+        counted = {"batch_rows": int(batch.shape[0]), "count": count,
+                   "bitwise_uncounted": count == 0 or torch.equal(
+                       got[:count], winding.winding_number(p, *v)),
+                   "zeros_past_count": bool((got[count:] == 0).all())}
+        if not (counted["bitwise_uncounted"]
+                and counted["zeros_past_count"]):
+            raise AssertionError(f"winding_number with a count disagrees "
+                                 f"with it on the rows below: {counted}")
+        if count == 0:
+            return {"shape": [0, tris.shape[0]], **counted}
+    m, t = p.shape[0], tris.shape[0]
     w = winding.winding_number(p, *v)
     wp = winding.winding_number_plain(p, *v)
     perm = torch.from_numpy(np.random.default_rng(seed).permutation(m)).cuda()
@@ -2117,10 +2376,15 @@ def check_winding(p: torch.Tensor, tris: np.ndarray, seed: int,
             and bool(torch.isfinite(w).all())):
         raise AssertionError(f"winding_number kernel disagrees with its "
                              f"plain version: {res}")
+    if count is not None:
+        res.update(counted)
     if timed:
         bound, by = winding_bound(m, t)
         res.update(
-            ms=replay_ms(lambda i: winding.winding_number(p, *v), 10),
+            ms=(replay_ms(lambda i: winding.winding_number(p, *v), 10)
+                if count is None else replay_ms(
+                    lambda i: winding.winding_number(batch, *v, count=cnt),
+                    10)),
             plain_ms=replay_ms(lambda i: winding.winding_number_plain(p, *v),
                                2),
             bound_ms=bound, bound_by=by, library_ms=None)
@@ -2143,17 +2407,29 @@ def winding_meshes(tmp: str) -> list:
     return meshes
 
 
+# the rows of the batch the STL test hands the winding kernel inside an
+# adaptive window of ``stl3d`` (256 selected cells' 8 children, 8 nodes
+# each), whose near band is counted on the device
+STL3D_WINDOW_ROWS = 16_384
+
+
 def winding_cases(meshes: list) -> tuple:
-    """``(triangles, points, seed, timed)`` of the ``winding_kernel``
-    cases: the ``stl3d`` mesh at the JAX package's near-band batch, at
-    ``stl3d``'s median and largest near-band calls, a large batch on the
-    small sphere, a large mesh, and edge shapes (one point, and spans and
-    point tiles left partly empty)."""
+    """``(triangles, points, seed, timed, count)`` of the
+    ``winding_kernel`` cases: the ``stl3d`` mesh at the JAX package's
+    near-band batch, at ``stl3d``'s median and largest near-band calls
+    (as the batches of the compaction's old route, and in a window's
+    batch with the count on the device, as the STL test calls it now), a
+    large batch on the small sphere, a large mesh, and edge shapes (one
+    point, and spans and point tiles left partly empty)."""
     (_, big), (_, small), (_, huge) = meshes
-    return ((big, 1024, 0, True), (small, 16384, 1, True),
-            (small[:1003], 1, 2, False), (small[:1025], 257, 3, False),
-            (big, 15, 4, True), (big, 481, 5, True), (huge, 1024, 6, True),
-            (big[:40001], 999, 7, False))
+    rows = STL3D_WINDOW_ROWS
+    return ((big, 1024, 0, True, None), (small, 16384, 1, True, None),
+            (small[:1003], 1, 2, False, None),
+            (small[:1025], 257, 3, False, None),
+            (big, 15, 4, True, None), (big, 481, 5, True, None),
+            (big, rows, 8, True, 15), (big, rows, 9, True, 481),
+            (big, rows, 10, False, rows - 1), (huge, 1024, 6, True, None),
+            (big[:40001], 999, 7, False, None))
 
 
 def phase_winding_kernel(tmp: str) -> tuple:
@@ -2162,9 +2438,12 @@ def phase_winding_kernel(tmp: str) -> tuple:
     from sparsespatialsampling_torch.ops import winding
     meshes = winding_meshes(tmp)
     cases = []
-    for tris, m, seed, timed in winding_cases(meshes):
+    for tris, m, seed, timed, count in winding_cases(meshes):
         p = torch.from_numpy(winding_points(tris, m, seed)).cuda()
-        cases.append(check_winding(p, tris, seed, timed))
+        cases.append(check_winding(p, count, tris=tris, seed=seed,
+                                   timed=timed))
+    # a count of 0: every row 0, nothing evaluated
+    empty = check_winding(p, 0, tris=tris)
     # the wrapper's slices of a batch whose partial sums exceed its scratch
     # bound: the last case's points, 64 a launch, bitwise the whole batch
     v = [torch.from_numpy(np.ascontiguousarray(tris[:, i], dtype=np.float32)
@@ -2184,57 +2463,101 @@ def phase_winding_kernel(tmp: str) -> tuple:
         raise AssertionError(f"winding_number's slices differ: {slices}")
     return ({"phase": "winding_kernel",
              "ops_per_pair": WINDING_OPS_PER_PAIR, "cases": cases,
-             "slices": slices}, meshes)
+             "count_zero": empty, "slices": slices}, meshes)
 
 
 class WindingCalls:
-    """The near-band batches of the winding-number calls of one scope, the
-    largest of them (a reference, not a copy) and the launches made."""
+    """The winding-number calls of one scope (``name``): each eager call's
+    batch and near-band count (a device copy, read after the run), the
+    calls replayed in window graphs (``replays[name]``, kept by
+    :class:`WindingTap`) and the launches both made (a batch larger than
+    the kernel's scratch bound launches in slices)."""
 
-    def __init__(self):
-        self.sizes, self.largest, self.launches = [], None, 0
+    def __init__(self, name: str, replays: dict):
+        self.name, self._replays = name, replays
+        self.eager, self.eager_launches = [], 0
 
-    def add(self, points: torch.Tensor) -> None:
-        self.sizes.append(int(points.shape[0]))
-        if self.largest is None or points.shape[0] > self.largest.shape[0]:
-            self.largest = points
+    def add(self, points: torch.Tensor, count, launches: int) -> None:
+        self.eager.append((points, None if count is None else count.clone()))
+        self.eager_launches += launches
+
+    @property
+    def replayed(self) -> int:
+        return self._replays.get(self.name, 0)
+
+    @property
+    def launches(self) -> int:
+        return self.eager_launches + self._replays.get(
+            f"{self.name}:launches", 0)
+
+    @property
+    def calls(self) -> int:
+        return len(self.eager) + self.replayed
+
+    def sizes(self) -> list:
+        """Near-band points of each eager call (read back)."""
+        return [p.shape[0] if c is None else int(c) for p, c in self.eager]
+
+    def largest(self) -> tuple:
+        """``(batch, near-band points)`` of the eager call with the most."""
+        sizes = self.sizes()
+        i = int(np.argmax(sizes))
+        return self.eager[i][0], sizes[i]
+
+    def summary(self) -> dict:
+        """The eager calls' near-band points, the calls replayed and the
+        largest batch (the fixed-size compaction's rows)."""
+        if not self.eager:
+            return {"calls": 0, "calls_replayed": self.replayed}
+        return {**size_summary(self.sizes()), "calls_replayed": self.replayed,
+                "batch_rows_max": max(p.shape[0] for p, _ in self.eager)}
 
 
-class WindingTap:
+class WindingTap(GraphTap):
     """Records the winding-number calls of a main-path run (``all``), of
     its geometry-refinement phase (``geometry``:
     ``SamplingTree._refine_geometries``) and of the geometry loop's
-    windows within it (``windows``: ``SamplingTree._run_geometry_window``)."""
+    windows within it (``windows``: ``SamplingTree._run_geometry_window``);
+    a call captured in a window's graph counts once for each replay."""
 
     def __init__(self):
+        super().__init__()
         from sparsespatialsampling_torch.engine.tree import SamplingTree
         from sparsespatialsampling_torch.ops import winding
         self._winding, self._tree = winding, SamplingTree
-        self._orig = winding.winding_number
+        self._orig_wn = winding.winding_number
         self._orig_geo = SamplingTree._refine_geometries
         self._orig_win = SamplingTree.__dict__["_run_geometry_window"]
-        self.all, self.geometry, self.windows = (WindingCalls(),
-                                                 WindingCalls(),
-                                                 WindingCalls())
+        self.all, self.geometry, self.windows = (
+            WindingCalls(n, self.totals)
+            for n in ("all", "geometry", "windows"))
         self._open = []
 
     def _scoped(self, calls: WindingCalls, run):
         """``run`` with the calls made inside it recorded in ``calls``."""
         def scoped(*args):
-            before = self._winding.launches
             self._open.append(calls)
             try:
                 return run(*args)
             finally:
                 self._open.remove(calls)
-                calls.launches += self._winding.launches - before
         return scoped
 
     def __enter__(self):
-        def tapped(points, v0, v1, v2):
-            for calls in [self.all] + self._open:
-                calls.add(points)
-            return self._orig(points, v0, v1, v2)
+        super().__enter__()
+
+        def tapped(points, v0, v1, v2, count=None):
+            scopes = [self.all] + self._open
+            before = self._winding.launches
+            out = self._orig_wn(points, v0, v1, v2, count)
+            n = self._winding.launches - before
+            if self.capturing:
+                for calls in scopes:
+                    self.note({calls.name: 1, f"{calls.name}:launches": n})
+            else:
+                for calls in scopes:
+                    calls.add(points, count, n)
+            return out
         self._winding.winding_number = tapped
         self._tree._refine_geometries = self._scoped(self.geometry,
                                                      self._orig_geo)
@@ -2243,9 +2566,10 @@ class WindingTap:
         return self
 
     def __exit__(self, *exc):
-        self._winding.winding_number = self._orig
+        self._winding.winding_number = self._orig_wn
         self._tree._refine_geometries = self._orig_geo
         self._tree._run_geometry_window = self._orig_win
+        super().__exit__(*exc)
 
 
 def size_summary(sizes: list) -> dict:
@@ -2281,9 +2605,10 @@ def phase_stl3d(tmp: str, stl_path: str) -> tuple:
             "stl3d", tmp, "stl", xyz, metric, geometries,
             sites=("grid_select",), kernels=("topk_smallest", "winding_number"),
             **kw)
-    if len(wtap.all.sizes) != counts["winding_number"]:
-        raise AssertionError(f"stl3d: {len(wtap.all.sizes)} winding calls, "
-                             f"{counts['winding_number']} launches")
+    if wtap.all.launches != counts["winding_number"]:
+        raise AssertionError(f"stl3d: the winding calls' launches "
+                             f"{wtap.all.launches} do not add up to the "
+                             f"kernel's count {counts['winding_number']}")
     # on the default route the geometry phase's winding calls run inside
     # the loop's windows
     if not wtap.windows.launches and geometry_loop_on(kw):
@@ -2294,22 +2619,21 @@ def phase_stl3d(tmp: str, stl_path: str) -> tuple:
            "n_triangles": int(stl.triangles.shape[0]),
            "stl_build_s": t_stl, **grid_summary(s3, t),
            "launches": counts, "launches_per_site": dict(tap.launches),
+           "winding_calls": wtap.all.calls,
            "winding_launches_geometry_phase": wtap.geometry.launches,
            "winding_launches_geometry_windows": wtap.windows.launches,
            "sign_grid": {"n_near_vox": stl._sg["n_near_vox"],
                          "n_vox": stl._sg["n_vox"]},
-           "near_band_points_per_call": size_summary(wtap.all.sizes),
-           "near_band_points_per_geometry_call": size_summary(
-               wtap.geometry.sizes)}
+           "near_band_points_per_call": wtap.all.summary(),
+           "near_band_points_per_geometry_call": wtap.geometry.summary()}
     check_expected("stl3d", out)
     out["kernel_at_call_sites"] = check_sites(tap)
-    out["winding_at_largest_call"] = check_winding(wtap.all.largest,
-                                                   stl.triangles, 4)
-    if wtap.windows.sizes:
-        out["near_band_points_per_window_call"] = size_summary(
-            wtap.windows.sizes)
+    out["winding_at_largest_call"] = check_winding(
+        *wtap.all.largest(), tris=stl.triangles, seed=4)
+    if wtap.windows.eager:
+        out["near_band_points_per_window_call"] = wtap.windows.summary()
         out["winding_at_largest_window_call"] = check_winding(
-            wtap.windows.largest, stl.triangles, 5)
+            *wtap.windows.largest(), tris=stl.triangles, seed=5)
     return out, counts
 
 
@@ -2449,14 +2773,14 @@ def phase_geometry_loop_vs_host(tmp: str, stl_path: str) -> dict:
             res[route] = {"wall_s_geometry": float(info["t_geometry"]),
                           "refine_total_s": t["refine"],
                           "geometry_route": rt}
-            if loop and wtap.windows.sizes:
+            if loop and wtap.windows.eager:
                 res[route].update(
                     winding_launches_geometry_phase=wtap.geometry.launches,
                     winding_launches_geometry_windows=wtap.windows.launches,
-                    near_band_points_per_window_call=size_summary(
-                        wtap.windows.sizes),
+                    near_band_points_per_window_call=wtap.windows.summary(),
                     winding_at_largest_window_call=check_winding(
-                        wtap.windows.largest, geoms[1].triangles, 6))
+                        *wtap.windows.largest(), tris=geoms[1].triangles,
+                        seed=6))
         res.update(compare_grids(f"{name}: geometry loop and host walk",
                                  keys[True], keys[False]))
         res["n_cells"], res["iterations"] = EXPECTED[name]
@@ -2553,13 +2877,40 @@ def case_large(tmp: str) -> tuple:
     """Workload 6 on one device, then over 4 shards on the card: rows,
     iterations and the metric trace equal, the sharded run on the
     ``shard_grid`` core.  Returns the case's line and its runs' taps."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
     xyz, metric, geometries, kw = large_case()
+
+    def peaks() -> dict:
+        """The run's peak device memory: allocated tensors, and reserved
+        (the graphs' pool too, whose blocks count as allocated only
+        while a capture holds them)."""
+        return {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     s3, _, _, t, counts, tap1, _ = main_path_run(
         "large_single", tmp, "large1", xyz, metric, geometries,
         sites=("grid_select",), **kw)
     single = {**grid_summary(s3, t), "launches": counts,
-              "launches_per_site": dict(tap1.launches)}
+              "launches_per_site": dict(tap1.launches), **peaks()}
     rows = grid_rows(s3)
+    del s3
+    torch.cuda.empty_cache()
+    # the same run with the loop bodies eager: its peak and walls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    SamplingTree._LOOP_GRAPHS = False
+    try:
+        s3, _, _, t, _ = run_grid(tmp, "large1e", xyz, metric, geometries,
+                                  **kw)
+    finally:
+        SamplingTree._LOOP_GRAPHS = True
+    eager = {**peaks(), "refine_total": t["refine"],
+             "t_window_s": float(
+                 s3.data_final_mesh["adaptive_split"]["t_window"]),
+             "adaptive_route": adaptive_route(s3),
+             **compare_bitwise("large_single: graphs and eager body", rows,
+                               grid_rows(s3))}
     del s3
     torch.cuda.empty_cache()
     with VirtualMesh(4):
@@ -2577,7 +2928,8 @@ def case_large(tmp: str) -> tuple:
            "wall_s_refine_total": {
                "single": single["wall_s"]["refine_total"],
                "sharded": sharded["wall_s"]["refine_total"]},
-           "single": single, "sharded": sharded,
+           "single": single, "single_eager_body": eager,
+           "sharded": sharded,
            **compare_routes("large: single device and 4 shards", rows,
                             grid_rows(s3))}
     del s3
@@ -2778,6 +3130,12 @@ def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
     geo = stl["winding_at_largest_window_call"]
     checks = cases + [geo, stl["winding_at_largest_call"]]
     timed = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def name(c):
+        """``MxT``, or ``CofBxT`` for C counted rows of a batch of B."""
+        m, t = c["shape"]
+        return (f"{m}x{t}" if "count" not in c else
+                f"{m}of{c['batch_rows']}x{t}")
     return {
         "name": "winding_number", "route": "cuda",
         "source": "sparsespatialsampling_torch/csrc/winding_number.cu",
@@ -2798,8 +3156,9 @@ def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
         **{key: cases[0][key] for key in timed},
         "cases": {("stl3d_largest_call" if c is checks[-1] else
                    "stl3d_largest_geometry_window_call" if c is geo else
-                   f"{c['shape'][0]}x{c['shape'][1]}"):
-                  {key: c[key] for key in timed}
+                   name(c)):
+                  {key: c[key] for key in timed + ("batch_rows",)
+                   if key in c}
                   for c in checks if "ms" in c}}
 
 
@@ -2847,9 +3206,8 @@ def main() -> int:
         emit(cyl)
         mdl, counts_mdl = phase_mdl2d(tmp)
         emit(mdl)
-        mdl25k, counts_mdl25k, mdl25k_key = phase_mdl2d_25k(tmp)
+        mdl25k, counts_mdl25k = phase_mdl2d_25k(tmp)
         emit(mdl25k)
-        emit(phase_device_loop_vs_host(tmp, mdl25k_key))
         emit(phase_svd_routes())
         c2d, counts_c2d = phase_c2d_reltol(tmp)
         emit(c2d)
@@ -2859,6 +3217,7 @@ def main() -> int:
         emit(wk)
         stl, counts_stl = phase_stl3d(tmp, big_path)
         emit(stl)
+        emit(phase_device_loop_vs_host(tmp, big_path))
         emit(phase_stl_cuda_vs_cpu(tmp, small_path, small))
         emit(phase_geometry_loop_vs_host(tmp, big_path))
         sharded, counts_sharded = phase_sharded(tmp, oat_ref, cmp_rows)

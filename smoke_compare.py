@@ -13,12 +13,16 @@ its pinned grid), then prints one JSON line of their ``refine_total``,
 directory first, e.g. ``git archive <commit> | tar -x -C
 _smoke_checkout/parent``.
 
-The second form runs one checkout's routes in the same turns: the
-device-resident loops (``SamplingTree.DEVICE_LOOP = True``, the default:
-the adaptive loop and the geometry loop) against the host loop and the
-host's per-level geometry walk (``False``), over every grid workload with
-a pin (``ROUTE_PHASES``); each run's line also carries both routes'
-counters.  Every line carries the geometry phase's wall.
+The second form runs one checkout's three routes in turns (graphs, eager
+body, host loop, host loop, eager body, graphs, ...): the device-resident
+loops (``SamplingTree.DEVICE_LOOP = True``, the default: the adaptive loop
+and the geometry loop) with each window iteration a replay of a captured
+CUDA graph (``SamplingTree._LOOP_GRAPHS = True``, the default), the same
+loops with their bodies run eagerly (``_LOOP_GRAPHS = False``), and the
+host loop and the host's per-level geometry walk (``DEVICE_LOOP =
+False``), over every grid workload with a pin (``ROUTE_PHASES``); each
+run's line also carries the routes' counters, the graphs' among them.
+Every line carries the geometry phase's wall.
 
 The last line is the card's ``nvidia-smi`` name and power limit.
 """
@@ -29,13 +33,16 @@ import sys
 import tempfile
 
 PHASES = ("grid2d_metric", "oat2d", "cylinder3d", "mdl2d")
+# the switches of each route: (DEVICE_LOOP, _LOOP_GRAPHS)
+ROUTES = {"graphs": (True, True), "eager_body": (True, False),
+          "host_loop": (False, True)}
 ROUTE_PHASES = ("grid3d", "grid2d_metric", "oat2d", "cylinder3d", "mdl2d",
                 "mdl2d_25k", "c2d_reltol", "stl3d")
 
 
 def walls(checkout: str, route: str = None) -> dict:
     """One run's walls, in this process (the child of :func:`main`);
-    ``route`` ("device_loop" or "host_loop") sets the routes."""
+    ``route`` (of ``ROUTES``) sets the routes."""
     checkout = os.path.abspath(checkout)
     sys.path.insert(0, checkout)
     os.chdir(checkout)
@@ -46,7 +53,7 @@ def walls(checkout: str, route: str = None) -> dict:
     phases = PHASES
     if route is not None:
         from sparsespatialsampling_torch.engine.tree import SamplingTree
-        SamplingTree.DEVICE_LOOP = route == "device_loop"
+        SamplingTree.DEVICE_LOOP, SamplingTree._LOOP_GRAPHS = ROUTES[route]
         out["route"] = route
         phases = ROUTE_PHASES
     with tempfile.TemporaryDirectory() as tmp:
@@ -77,11 +84,12 @@ def main() -> int:
         return 2
     rounds = int(sys.argv[3]) if len(sys.argv) == 4 else 2
     if sys.argv[1] == "--routes":
-        a, b = [sys.argv[2], "device_loop"], [sys.argv[2], "host_loop"]
+        a, b, c = ([sys.argv[2], route] for route in ROUTES)
+        order = [a, b, c, c, b, a] * rounds
     else:
         a, b = [sys.argv[1]], [sys.argv[2]]
-    order = [a, b, b, a, b, a, a, b] * rounds
-    for args in order[:4 * rounds]:
+        order = ([a, b, b, a, b, a, a, b] * rounds)[:4 * rounds]
+    for args in order:
         run = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", *args], stdout=subprocess.PIPE,
                              text=True, check=True)

@@ -12,7 +12,10 @@ stop test said stop, the window is full) runs predicated — every scatter
 goes to the sentinel row ``cap`` and every scalar keeps its value — so
 the host may enqueue it before it knows.  The host side of a window
 (``SamplingTree._device_adaptive_call``) reads one small scalar row per
-iteration to decide whether to enqueue the next.
+iteration to decide whether to enqueue the next.  Both bodies update the
+state in place, every scalar through ``copy_`` into the tensor it already
+has, so the state keeps its addresses and a captured CUDA graph of an
+iteration (``engine/graphs.py``) reads and writes it on every replay.
 
 - :func:`_bsearch_eq`: exact lookup of ``(level, coords)`` keys in a
   lexicographically sorted set.  The JAX package runs a branchless binary
@@ -352,28 +355,28 @@ def loop_body(s: dict, p, epoch) -> None:
     bad_any = gbad.any()
 
     n_alive = s["alive"][:cap].sum()
-    s["fill"] = s["fill"] + pvalid.sum() * n_ch
-    s["n_alive"] = n_alive
-    s["why"] = s["why"] | torch.where(
-        active, why | torch.where(bad_any, WHY_BAD, 0), 0)
-    s["flag"] = s["flag"] | (active & (guard | bad_any))
-    s["maxlev"] = torch.maximum(s["maxlev"],
-                                torch.where(pvalid, clevel, 0).max())
-    s["cpi"] = torch.where(noop, s["cpi"], cpi2)
-    s["cpi_last"] = torch.where(noop, s["cpi_last"], cpi_last2)
+    s["fill"].copy_(s["fill"] + pvalid.sum() * n_ch)
+    s["n_alive"].copy_(n_alive)
+    s["why"].copy_(s["why"] | torch.where(
+        active, why | torch.where(bad_any, WHY_BAD, 0), 0))
+    s["flag"].copy_(s["flag"] | (active & (guard | bad_any)))
+    s["maxlev"].copy_(torch.maximum(s["maxlev"],
+                                    torch.where(pvalid, clevel, 0).max()))
+    s["cpi"].copy_(torch.where(noop, s["cpi"], cpi2))
+    s["cpi_last"].copy_(torch.where(noop, s["cpi_last"], cpi_last2))
     # a no-op iteration writes its series entries at the sentinel index
     it_w = _at(torch.where(noop, p.iters, s["it"]))
     if p.metric_mode:
         m = s["metric"][:cap]
         ratio = _sqrt(torch.where(s["alive"][:cap], m * m, 0.0).sum()) \
             / p.tnorm
-        s["m_prev"] = torch.where(noop, s["m_prev"], s["m_last"])
-        s["m_last"] = torch.where(noop, s["m_last"], ratio)
-        s["m_count"] = s["m_count"] + (~noop).long()
+        s["m_prev"].copy_(torch.where(noop, s["m_prev"], s["m_last"]))
+        s["m_last"].copy_(torch.where(noop, s["m_last"], ratio))
+        s["m_count"].copy_(s["m_count"] + (~noop).long())
         s["ms"][it_w] = ratio.reshape(1)
     s["ns"][it_w] = n_alive.reshape(1)
     s["nbq"][it_w] = counts.reshape(1, -1)
-    s["it"] = s["it"] + (~noop).long()
+    s["it"].copy_(s["it"] + (~noop).long())
 
 
 def geometry_params(cap: int, k_geo: int, levels: int, d: int, gmax: int,
@@ -462,14 +465,14 @@ def geometry_level_body(s: dict, p, check_cells) -> None:
     # a no-op level writes its parents at the sentinel index
     s["psel"][_at(torch.where(noop, p.levels, s["it"]))] = parents.reshape(
         1, -1)
-    s["fill"] = s["fill"] + pvalid.sum() * n_ch
-    s["gcur"] = s["gcur"] + adv
-    s["it"] = s["it"] + adv
-    s["fr"] = torch.where(noop, fr, fr2)
-    s["n_fr"] = torch.where(noop, s["n_fr"], n_fr2)
-    s["fr_ok"] = s["fr_ok"] & ~over
-    s["why"] = s["why"] | torch.where(
-        active, why | torch.where(over, WHY_OVER, 0), 0)
-    s["flag"] = s["flag"] | (active & (guard | over))
-    s["maxlev"] = torch.maximum(s["maxlev"],
-                                torch.where(pvalid, clevel, 0).max())
+    s["fill"].copy_(s["fill"] + pvalid.sum() * n_ch)
+    s["gcur"].copy_(s["gcur"] + adv)
+    s["it"].copy_(s["it"] + adv)
+    s["fr"].copy_(torch.where(noop, fr, fr2))
+    s["n_fr"].copy_(torch.where(noop, s["n_fr"], n_fr2))
+    s["fr_ok"].copy_(s["fr_ok"] & ~over)
+    s["why"].copy_(s["why"] | torch.where(
+        active, why | torch.where(over, WHY_OVER, 0), 0))
+    s["flag"].copy_(s["flag"] | (active & (guard | over)))
+    s["maxlev"].copy_(torch.maximum(s["maxlev"],
+                                    torch.where(pvalid, clevel, 0).max()))

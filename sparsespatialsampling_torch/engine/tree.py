@@ -34,6 +34,14 @@ or the host's per-level walk, which runs the 2:1 variant unless
 above 22 and each level a window could not run.  The loop tests every
 child on device-built nodes, a pre-select geometry's too.
 
+On the card each window iteration of both loops is a replay of one
+captured CUDA graph a window key (``engine/graphs.py``; the JAX package
+compiles a window into one cached ``lax.while_loop``): the state, series
+and parameters of a window live in the run's fixed tensors
+(:meth:`SamplingTree._buffer`), which the window drivers fill before the
+window, and the graphs and tensors are dropped when ``refine()`` returns.
+The CPU and a mesh run the bodies eagerly.
+
 A grid query that is not provably exact is answered again inside the
 epoch, as in the JAX package's ``fn_grid_dil``: over the blocked radius-4
 neighbourhood (the ring), then, once a cell has had to be escalated, by
@@ -77,7 +85,7 @@ on it.  Both cores emit the single-device canonical order, so a sharded
 grid equals the single-device one row for row.
 """
 import logging
-from functools import reduce
+from functools import partial, reduce
 from operator import or_
 from time import time
 from typing import Union
@@ -90,6 +98,7 @@ from ..ops import morton
 from ..parallel import ShardedKNNIndex, default_mesh, sharding_enabled
 from ..ops.knn import (KNNIndex, _blocked_topk, _dilated_topk, _fma, _idw,
                        _rowsum, _search, _weighted_sum)
+from . import graphs
 from .device_loop import (WHY_BAD, WHY_BUDGET, WHY_FILL, WHY_LEVEL, WHY_MDL,
                           WHY_OVER, _bucket, _cell_size, _corner_nodes_f32,
                           _first_rows, geometry_level_body, geometry_may_run,
@@ -185,15 +194,15 @@ def _huge(g) -> bool:
     return g.device_table_bytes > _FUSED_GEO_BYTES
 
 
-def _enqueue_ahead(step, row, steps: int, reader) -> list:
+def _enqueue_ahead(step, steps: int, reader) -> list:
     """Run ``step()`` up to ``steps + 1`` times one ahead of the host's
-    knowledge: the row ``row()`` posted after step t is waited for after
-    step t + 1 is enqueued, which runs as a no-op where t was the last
-    (the row's first entry false).  Returns the last row waited for."""
+    knowledge: the row ``step()`` returns after step t is posted, and
+    waited for after step t + 1 is enqueued, which runs as a no-op where t
+    was the last (the row's first entry false).  Returns the last row
+    waited for."""
     prev = None
     for _ in range(steps + 1):
-        step()
-        cur = reader.post(row())
+        cur = reader.post(step())
         if prev is not None:
             got = reader.wait(prev)
             if not got[0]:
@@ -205,23 +214,32 @@ def _enqueue_ahead(step, row, steps: int, reader) -> list:
 class _Reader:
     """Small device rows read back behind the enqueue: on the card a row
     is copied into pinned host memory behind an event, so the host goes
-    on enqueueing until it waits for that event.  ``reads`` counts the
-    reads the host waited for."""
+    on enqueueing until it waits for that event.  The enqueue is one step
+    ahead at most, so two pinned rows and two events, taken in turn, serve
+    a window.  ``reads`` counts the reads the host waited for."""
 
     def __init__(self, device):
         self._cuda = device.type == "cuda"
         self.reads = 0
+        self._slots = None
+        self._turn = 0
 
     def post(self, row: torch.Tensor):
         if not self._cuda:
             return row.clone()
-        host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+        if self._slots is None:
+            self._slots = [(torch.empty(row.shape, dtype=row.dtype,
+                                        pin_memory=True), torch.cuda.Event())
+                           for _ in range(2)]
+        host, event = self._slots[self._turn]
+        self._turn ^= 1
         host.copy_(row, non_blocking=True)
-        event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(row.device))
         return host, event
 
     def wait(self, posted) -> list:
+        """The posted row; on the card its event's wait raises a fault of
+        the work before it (a failed replay never reads as a row)."""
         self.reads += 1
         if not self._cuda:
             return posted.tolist()
@@ -253,6 +271,11 @@ class SamplingTree:
     GEO_MDL_LOOP = False
     # levels a window of the geometry loop may run
     _GEO_LOOP_LEVELS = 8
+    # each window iteration of both loops as a replay of one captured CUDA
+    # graph a window key (``engine/graphs.py``; on the card only, never on
+    # a mesh); False runs the bodies eagerly, to time them beside the
+    # graphs
+    _LOOP_GRAPHS = True
 
     def __init__(self, vertices, target, geometry_obj: list,
                  n_cells: int = None, uniform_level: int = 5,
@@ -348,7 +371,8 @@ class SamplingTree:
         # state uploads and rows scattered on re-entry, and the reads back
         # to the host that ``_device_adaptive_call`` made; and the geometry
         # loop's windows, their levels, the host levels and why, why each
-        # window ended, and the reads back ``_device_geometry_call`` made
+        # window ended, and the reads back ``_device_geometry_call`` made;
+        # each loop's CUDA graphs (``graphs.new_stats``)
         self._epoch_stats = {"core": core, "queries": 0,
                              "n_calls_main": 0,
                              "n_calls_ring": 0, "n_calls_full": 0,
@@ -359,14 +383,15 @@ class SamplingTree:
                              "window_exits": dict.fromkeys(_EXITS, 0),
                              "host_fallback": dict.fromkeys(_FALLBACKS, 0),
                              "state_uploads": 0, "rows_reuploaded": 0,
-                             "d2h_syncs": 0,
+                             "d2h_syncs": 0, "graphs": graphs.new_stats(),
                              "geometry_route": {
                                  "windows": 0, "window_levels": 0,
                                  "host_levels": 0,
                                  "window_exits": dict.fromkeys(_GEO_EXITS, 0),
                                  "host_fallback": dict.fromkeys(
                                      _GEO_FALLBACKS, 0),
-                                 "d2h_syncs": 0}}
+                                 "d2h_syncs": 0,
+                                 "graphs": graphs.new_stats()}}
         # the in-epoch full-scan rescue starts off and turns on at the
         # first cell escalation (the JAX package's default "auto" mode)
         self._rescue_active = False
@@ -377,6 +402,10 @@ class SamplingTree:
         # an epoch meets one)
         self._device_loop_disabled = False
         self._dev_state = None
+        # the windows' CUDA graphs and their fixed state, parameter and
+        # series tensors, for one refine()
+        self._graphs = None
+        self._bufs = {}
         self._loop_ring_rows = 0
         self._loop_rescue_rows = 0
         # the geometry loop's (k_geo, cap) per geometry, kept for the phase
@@ -1111,19 +1140,26 @@ class SamplingTree:
         n0 = self._n_cells
         t0 = time()
         s = self._window_state(cap, iters)
-        vals = torch.tensor(
-            [self._min_metric or 0.0, self._relTol, self._reach_at_least,
-             self._n_cells_max or 0, self._cells_per_iter_start,
-             self._cells_per_iter_end, self._target_norm],
-            dtype=torch.float32).to(self.device)
-        p = loop_params(cap, k_max, k_sel, iters, d, metric_mode, mdl,
-                        _F32_LEVEL_CAP, self._MDL_ROUNDS, self._offsets_i,
-                        self._nbdirs_i, dict(zip(
-                            ("min_metric", "relTol", "reach", "ncmax",
-                             "cps_start", "cps_end", "tnorm"), vals)))
+        plan, rescue = self._loop_ring()
+        key = self._window_key(cap, k_max, k_sel, iters, block, plan, rescue)
+
+        def params():
+            vals = torch.tensor(
+                [self._min_metric or 0.0, self._relTol, self._reach_at_least,
+                 self._n_cells_max or 0, self._cells_per_iter_start,
+                 self._cells_per_iter_end, self._target_norm],
+                dtype=torch.float32).to(self.device)
+            return loop_params(
+                cap, k_max, k_sel, iters, d, metric_mode, mdl,
+                _F32_LEVEL_CAP, self._MDL_ROUNDS, self._offsets_i,
+                self._nbdirs_i, dict(zip(
+                    ("min_metric", "relTol", "reach", "ncmax", "cps_start",
+                     "cps_end", "tnorm"), vals)))
+        p = self._buffer(("params",) + key, params)
         reader = _Reader(self.device)
         ran, fill, why = self._run_window(
-            s, p, self._loop_epoch(block), reader)
+            s, p, self._loop_epoch(block, plan, rescue), reader,
+            self._graph_step(key, self._epoch_stats["graphs"]))
         retry = self._window_readback(s, n0, fill, ran, reader)
 
         st = self._epoch_stats
@@ -1139,10 +1175,7 @@ class SamplingTree:
         # between windows the host changes only the escalated rows; any
         # other change (a host iteration, the geometry phase) changes the
         # cell count and so discards this state
-        self._dev_state = {"cap": cap, "fill": fill, "dirty": retry,
-                           "arrays": {k: s[k] for k in ("coords", "level",
-                                                        "alive", "gain",
-                                                        "metric")}}
+        self._dev_state = {"cap": cap, "fill": fill, "dirty": retry}
         if retry.size:
             self._resolve_retries(retry, self._chunk())
             if metric_mode:
@@ -1182,16 +1215,52 @@ class SamplingTree:
             cap = cache["cap"]
         return iters, cap
 
+    def _buffer(self, key: tuple, make):
+        """The run's fixed tensors under ``key``, made by ``make()`` at
+        first use: a window graph reads and writes the addresses its
+        capture saw, so every window of a key gets the same tensors."""
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = make()
+        return buf
+
+    def _graph_step(self, key, stats: dict):
+        """One window iteration of ``key`` through the run's graph cache
+        (:meth:`graphs.WindowGraphs.step`); eager on a mesh."""
+        if self._graphs is None:
+            self._graphs = graphs.WindowGraphs(self.device, self._LOOP_GRAPHS)
+        return partial(self._graphs.step, key, stats=stats,
+                       eager="mesh" if self._mesh is not None else None)
+
+    def _window_key(self, cap: int, k_max: int, k_sel: int, iters: int,
+                    block: int, plan: tuple, rescue: int) -> tuple:
+        """Everything the capture of an adaptive window's iteration bakes
+        in (the JAX package's ``cached_jit`` key of its loop): the shapes,
+        the epoch's core, block, ring plan and rescue rows, the stopping
+        mode, the 2:1 closure and the geometries the epoch tests."""
+        return ("adaptive", self._n_dimensions, cap, k_max, k_sel, iters,
+                block, self._epoch_stats["core"], self._n_cells_max is None,
+                self._max_delta_level, self._MDL_ROUNDS, plan, rescue,
+                tuple(id(g) for g in self._geometry if not _huge(g)))
+
     def _window_state(self, cap: int, iters: int) -> dict:
-        """The loop state on the device: the cell rows (uploaded in one
-        packed copy, or on re-entry the previous window's, with the rows
-        the host escalation corrected scattered in), then the window's
-        series and scalars."""
+        """The loop state on the device, in the run's fixed tensors of
+        ``cap`` rows and ``iters`` series entries: the cell rows (uploaded
+        in one packed copy, or on re-entry the previous window's, with the
+        rows the host escalation corrected scattered in), then the
+        window's series and scalars."""
         dev, d, n0 = self.device, self._n_dimensions, self._n_cells
         st = self._epoch_stats
+        arrays = self._buffer(("cells", cap), lambda: {
+            "coords": torch.zeros((cap + 1, d), dtype=torch.int64,
+                                  device=dev),
+            "level": torch.zeros(cap + 1, dtype=torch.int64, device=dev),
+            "gain": torch.zeros(cap + 1, dtype=torch.float32, device=dev),
+            "metric": torch.zeros(cap + 1, dtype=torch.float32, device=dev),
+            "alive": torch.zeros(cap + 1, dtype=torch.bool, device=dev),
+            "bad": torch.zeros(cap + 1, dtype=torch.bool, device=dev)})
         cache = self._dev_state
         if cache is not None and cache["cap"] == cap and cache["fill"] == n0:
-            arrays = cache["arrays"]
             dirty = cache["dirty"]
             if dirty.size:
                 rows = torch.from_numpy(dirty).to(dev)
@@ -1212,14 +1281,8 @@ class SamplingTree:
                 np.float32).view(np.int32)
             buf[:, d + 3] = self._alive[:n0]
             t = torch.from_numpy(buf).to(dev)
-            arrays = {
-                "coords": torch.zeros((cap + 1, d), dtype=torch.int64,
-                                      device=dev),
-                "level": torch.zeros(cap + 1, dtype=torch.int64, device=dev),
-                "gain": torch.zeros(cap + 1, dtype=torch.float32, device=dev),
-                "metric": torch.zeros(cap + 1, dtype=torch.float32,
-                                      device=dev),
-                "alive": torch.zeros(cap + 1, dtype=torch.bool, device=dev)}
+            for a in arrays.values():
+                a.zero_()
             arrays["coords"][:n0] = t[:, :d]
             arrays["level"][:n0] = t[:, d]
             arrays["gain"][:n0] = t[:, d + 1].contiguous().view(torch.float32)
@@ -1227,35 +1290,48 @@ class SamplingTree:
                 torch.float32)
             arrays["alive"][:n0] = t[:, d + 3] != 0
             st["state_uploads"] += 1
+        arrays["bad"].zero_()
+        series = self._buffer(("series", iters), lambda: {
+            "ms": torch.zeros(iters + 1, dtype=torch.float32, device=dev),
+            "ns": torch.zeros(iters + 1, dtype=torch.int64, device=dev),
+            "nbq": torch.zeros((iters + 1, 4), dtype=torch.int64,
+                               device=dev)})
+        for a in series.values():
+            a.zero_()
+        scalars = self._buffer(("scalars",), lambda: {
+            "ints": torch.zeros(7, dtype=torch.int64, device=dev),
+            "floats": torch.zeros(4, dtype=torch.float32, device=dev),
+            "flag": torch.zeros((), dtype=torch.bool, device=dev)})
         m = self._metric
-        ints = torch.tensor([n0, 0, int(self._alive[:n0].sum()),
-                             self._cells_per_iter, len(m), 0,
-                             self._current_max_level]).to(dev)
-        floats = torch.tensor(
+        scalars["ints"].copy_(torch.tensor(
+            [n0, 0, int(self._alive[:n0].sum()), self._cells_per_iter,
+             len(m), 0, self._current_max_level]))
+        scalars["floats"].copy_(torch.tensor(
             [self._cells_per_iter_last, m[0] if m else 0.0,
              m[-2] if len(m) > 1 else np.inf, m[-1] if m else 0.0],
-            dtype=torch.float32).to(dev)
-        s = dict(arrays)
+            dtype=torch.float32))
+        scalars["flag"].zero_()
+        s = {**arrays, **series, "flag": scalars["flag"]}
         s.update(zip(("fill", "it", "n_alive", "cpi", "m_count", "why",
-                      "maxlev"), ints))
-        s.update(zip(("cpi_last", "m_first", "m_prev", "m_last"), floats))
-        s.update(bad=torch.zeros(cap + 1, dtype=torch.bool, device=dev),
-                 flag=torch.zeros((), dtype=torch.bool, device=dev),
-                 ms=torch.zeros(iters + 1, dtype=torch.float32, device=dev),
-                 ns=torch.zeros(iters + 1, dtype=torch.int64, device=dev),
-                 nbq=torch.zeros((iters + 1, 4), dtype=torch.int64,
-                                 device=dev))
+                      "maxlev"), scalars["ints"]))
+        s.update(zip(("cpi_last", "m_first", "m_prev", "m_last"),
+                     scalars["floats"]))
         return s
 
-    def _loop_epoch(self, block: int):
+    def _loop_ring(self) -> tuple:
+        """``(ring pass sizes, rescue rows)`` of a window's epochs, sized
+        from the previous window (no ring without a grid)."""
+        plan = (tuple(_ring_plan(self._loop_ring_rows))
+                if self._knn._grid is not None else ())
+        return plan, self._loop_rescue_rows
+
+    def _loop_epoch(self, block: int, plan: tuple, rescue: int):
         """The epoch of a window's iterations: :meth:`_epoch_core` over
-        blocks of ``block`` cells with the ring and rescue sized from the
-        previous window (nothing read back); returns the packed output and
-        ``[bad queries before the ring, ring rows left unproven]``."""
-        grid = self._knn._grid
-        mode = "full" if grid is None else "grid"
-        plan = _ring_plan(self._loop_ring_rows) if grid is not None else []
-        rescue = self._loop_rescue_rows
+        blocks of ``block`` cells with the ring passes ``plan`` and
+        ``rescue`` rescue rows (nothing read back); returns the packed
+        output and ``[bad queries before the ring, ring rows left
+        unproven]``."""
+        mode = "full" if self._knn._grid is None else "grid"
 
         def epoch(coords, level, slot):
             outs, counts = [], 0
@@ -1270,14 +1346,16 @@ class SamplingTree:
         return epoch
 
     @staticmethod
-    def _run_window(s: dict, p, epoch, reader):
+    def _run_window(s: dict, p, epoch, reader, step):
         """Enqueue the window's iterations one ahead of the host's
-        knowledge (:func:`_enqueue_ahead`) on ``[may run, it, fill, why]``
+        knowledge (:func:`_enqueue_ahead`), each through ``step`` (the
+        graph cache's, :meth:`_graph_step`) on ``[may run, it, fill, why]``
         rows.  Returns ``(it, fill, why)``."""
         return tuple(_enqueue_ahead(
-            lambda: loop_body(s, p, epoch),
-            lambda: torch.stack([may_run(s, p).long(), s["it"], s["fill"],
-                                 s["why"]]), p.iters, reader)[1:])
+            lambda: step(lambda: loop_body(s, p, epoch),
+                         lambda: torch.stack([may_run(s, p).long(), s["it"],
+                                              s["fill"], s["why"]])),
+            p.iters, reader)[1:])
 
     def _window_readback(self, s: dict, n0: int, fill: int, ran: int,
                          reader) -> np.ndarray:
@@ -1329,6 +1407,14 @@ class SamplingTree:
         """Run the full grid generation (reference ``refine``,
         s_cube.py:563-667)."""
         logger.info("Generating the S^3 grid.")
+        try:
+            self._refine()
+        finally:
+            # the windows' graphs, their pool and fixed tensors are the run's
+            self._graphs = None
+            self._bufs = {}
+
+    def _refine(self) -> None:
         self._refine_uniform()
 
         iteration_count = 0
@@ -1539,33 +1625,44 @@ class SamplingTree:
         frontier[:surface.size] = surface
         rows = np.concatenate([self._coords[:n0], self._level[:n0, None],
                                self._alive[:n0, None]], axis=1)
-        # n_fr, gcur, it, fill, maxlev, why; the frontier; the cell rows
+        # n_fr, gcur, it, fill, maxlev, why; the frontier; the cell rows,
+        # copied into the run's fixed tensors of this window shape
         buf = torch.from_numpy(np.concatenate([
             [surface.size, gmin, 0, n0, self._current_max_level, 0],
             frontier, rows.reshape(-1)]).astype(np.int64)).to(dev)
         rows = buf[6 + k_geo:].reshape(n0, d + 2)
-        s = {"coords": torch.zeros((cap + 1, d), dtype=torch.int64,
-                                   device=dev),
-             "level": torch.zeros(cap + 1, dtype=torch.int64, device=dev),
-             "alive": torch.zeros(cap + 1, dtype=torch.bool, device=dev),
-             "fr": buf[6:6 + k_geo],
-             "flag": torch.zeros((), dtype=torch.bool, device=dev),
-             "fr_ok": torch.ones((), dtype=torch.bool, device=dev),
-             "psel": torch.full((levels + 1, k_geo), cap, dtype=torch.int64,
-                                device=dev)}
+        key = self._geometry_key(g, cap, k_geo, gmax)
+        s = dict(self._buffer(("geometry", cap, k_geo, levels), lambda: {
+            "coords": torch.zeros((cap + 1, d), dtype=torch.int64,
+                                  device=dev),
+            "level": torch.zeros(cap + 1, dtype=torch.int64, device=dev),
+            "alive": torch.zeros(cap + 1, dtype=torch.bool, device=dev),
+            "fr": torch.zeros(k_geo, dtype=torch.int64, device=dev),
+            "flag": torch.zeros((), dtype=torch.bool, device=dev),
+            "fr_ok": torch.zeros((), dtype=torch.bool, device=dev),
+            "psel": torch.zeros((levels + 1, k_geo), dtype=torch.int64,
+                                device=dev),
+            "ints": torch.zeros(6, dtype=torch.int64, device=dev)}))
+        for name in ("coords", "level", "alive", "flag"):
+            s[name].zero_()
         s["coords"][:n0] = rows[:, :d]
         s["level"][:n0] = rows[:, d]
         s["alive"][:n0] = rows[:, d + 1] != 0
+        s["fr"].copy_(buf[6:6 + k_geo])
+        s["fr_ok"].fill_(True)
+        s["psel"].fill_(cap)
+        s["ints"].copy_(buf[:6])
         s.update(zip(("n_fr", "gcur", "it", "fill", "maxlev", "why"),
-                     buf[:6]))
-        p = geometry_params(cap, k_geo, levels, d, gmax,
-                            self._max_delta_level, _F32_LEVEL_CAP,
-                            self._MDL_ROUNDS, self._offsets_i,
-                            self._nbdirs_i, self._lo_t, self._width_t,
-                            self._offsets_t)
+                     s.pop("ints")))
+        p = self._buffer(("params",) + key, lambda: geometry_params(
+            cap, k_geo, levels, d, gmax, self._max_delta_level,
+            _F32_LEVEL_CAP, self._MDL_ROUNDS, self._offsets_i,
+            self._nbdirs_i, self._lo_t, self._width_t, self._offsets_t))
         reader = _Reader(dev)
         ran, fill, why, n_fr, fr_ok, maxlev = self._run_geometry_window(
-            s, p, g.check_cells, reader)
+            s, p, g.check_cells, reader,
+            self._graph_step(key, self._epoch_stats["geometry_route"][
+                "graphs"]))
 
         route = self._epoch_stats["geometry_route"]
         route["windows"] += 1
@@ -1615,17 +1712,25 @@ class SamplingTree:
         return (children[self._geo_flags_device(g, children)[1]], gmin,
                 None)
 
+    def _geometry_key(self, g, cap: int, k_geo: int, gmax: int) -> tuple:
+        """Everything the capture of a geometry window's level bakes in:
+        the shapes, the target level, the 2:1 closure and the geometry."""
+        return ("geometry", self._n_dimensions, cap, k_geo,
+                self._GEO_LOOP_LEVELS, gmax, self._max_delta_level,
+                self._MDL_ROUNDS, id(g))
+
     @staticmethod
-    def _run_geometry_window(s: dict, p, check_cells, reader) -> list:
+    def _run_geometry_window(s: dict, p, check_cells, reader, step) -> list:
         """Enqueue the window's levels one ahead of the host's knowledge
-        (:func:`_enqueue_ahead`) on ``[may run, it, fill, why, n_fr,
-        fr_ok, maxlev]`` rows.  Returns the last row without its first
-        entry."""
+        (:func:`_enqueue_ahead`), each through ``step`` (the graph
+        cache's) on ``[may run, it, fill, why, n_fr, fr_ok, maxlev]``
+        rows.  Returns the last row without its first entry."""
         return _enqueue_ahead(
-            lambda: geometry_level_body(s, p, check_cells),
-            lambda: torch.stack([
-                geometry_may_run(s, p).long(), s["it"], s["fill"], s["why"],
-                s["n_fr"], s["fr_ok"].long(), s["maxlev"]]),
+            lambda: step(lambda: geometry_level_body(s, p, check_cells),
+                         lambda: torch.stack([
+                             geometry_may_run(s, p).long(), s["it"],
+                             s["fill"], s["why"], s["n_fr"],
+                             s["fr_ok"].long(), s["maxlev"]])),
             p.levels, reader)[1:]
 
     # ------------------------------------------------------------------ #

@@ -574,21 +574,32 @@ class GeometrySTL3D(GeometryObject):
             self._device_tables[key] = tab
         return tab
 
-    def _winding(self, points: torch.Tensor, tab: dict) -> torch.Tensor:
-        """Winding number ``[M]`` f32 of near-band ``points [M, 3]`` f32 by
-        the geometry's route: the fast winding number, or the exact sweep
-        (the hand-written kernel on the card)."""
-        if "fw" in tab:
-            return _fast_winding(points, tab["fw"])
-        return winding.winding_number(points, tab["v0"], tab["v1"],
-                                      tab["v2"])
+    def _winding(self, points: torch.Tensor, count: torch.Tensor,
+                 tab: dict) -> torch.Tensor:
+        """Winding number ``[M]`` f32 of the first ``count`` (a device
+        int32) of ``points [M, 3]`` f32, 0 at the rest, by the geometry's
+        route: the exact sweep (the hand-written kernel on the card, which
+        reads the count there), or the fast winding number, plain PyTorch
+        over the first ``count`` rows, which it reads back (its tables, from
+        ``_FW_MIN_TRIS`` triangles, exceed the engine's
+        ``_FUSED_GEO_BYTES``, so it never runs inside a loop's window)."""
+        if "fw" not in tab:
+            return winding.winding_number(points, tab["v0"], tab["v1"],
+                                          tab["v2"], count)
+        n = int(count)
+        w = torch.zeros(points.shape[0], dtype=torch.float32,
+                        device=points.device)
+        w[:n] = _fast_winding(points[:n], tab["fw"])
+        return w
 
     def _inside(self, points):
         """The sign-grid inside test (the JAX package's
         ``_make_sign_mask_fn``) in f32: one int8 lookup per point (0 outside
         the grid), the near-band points (state 2) compacted in ascending
-        index through :meth:`_winding` and ``w > 0.5``, then the f32
-        bounding-box test."""
+        index to the front of a batch of all ``M`` rows, their count kept
+        on the device, through :meth:`_winding` and ``w > 0.5``, then the
+        f32 bounding-box test.  Nothing waits for the device (no
+        ``nonzero``), so the test runs inside a captured CUDA graph."""
         pts = points.to(torch.float32)
         tab = self._tables(pts.device)
         cell = torch.floor((pts - tab["origin"]) * tab["inv_h"])
@@ -601,10 +612,16 @@ class GeometrySTL3D(GeometryObject):
         state = torch.where(in_grid, tab["state"][flat],
                             torch.zeros((), dtype=torch.int8,
                                         device=pts.device))
-        inside = state == 1
-        rows = torch.nonzero(state == 2).flatten()
-        if rows.numel():
-            inside[rows] = self._winding(pts[rows].contiguous(), tab) > 0.5
+        near = state == 2
+        m = pts.shape[0]
+        # the near rows' places in the compacted batch; the others write
+        # to the spare last slot
+        pos = torch.cumsum(near, 0) - 1
+        rows = torch.zeros(m + 1, dtype=torch.int64, device=pts.device)
+        rows[torch.where(near, pos, m)] = torch.arange(m, device=pts.device)
+        count = near.sum(dtype=torch.int32).reshape(1)
+        w = self._winding(pts[rows[:m]], count, tab)
+        inside = torch.where(near, w[pos.clamp(min=0)] > 0.5, state == 1)
         in_box = ((pts >= tab["lower"]) & (pts <= tab["upper"])).all(-1)
         return inside & in_box
 

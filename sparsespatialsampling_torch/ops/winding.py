@@ -15,6 +15,13 @@ inside and about 0 outside; a point is inside when ``w > 0.5``.
   (point, triangle) pairs to bound memory.
 - ``launches`` counts the kernel launches, and nothing else.
 
+Both take an optional ``count``, a one-element int32 tensor on the points'
+device: only the first ``count`` rows of ``points`` are evaluated, and the
+rows from ``count`` on get ``w = 0``.  The STL near band is compacted to
+the front of a fixed-size batch and its size stays on the device, so the
+kernel reads it there (nothing waits for the device); its grid is sized by
+the batch, and the blocks past the count do nothing.
+
 Every product, sum and difference of ``det`` and ``denom`` rounds alone,
 in a fixed order, and the norms are correctly rounded square roots, so the
 kernel, the plain version on the card and the plain version on the CPU
@@ -64,10 +71,19 @@ def half_angles(p, w0, w1, w2) -> torch.Tensor:
 
 
 def winding_number_plain(points: torch.Tensor, v0: torch.Tensor,
-                         v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+                         v1: torch.Tensor, v2: torch.Tensor,
+                         count: torch.Tensor = None) -> torch.Tensor:
     """``w [M]`` f32 of ``points [M, 3]`` against the triangles ``v0, v1,
     v2 [T, 3]`` (f32), the angles summed in f64: the kernel's function,
-    evaluated in chunks of at most ``_PAIRS_PER_CHUNK`` pairs."""
+    evaluated in chunks of at most ``_PAIRS_PER_CHUNK`` pairs.  With
+    ``count`` (read back here) only the first ``count`` rows, the rest
+    0."""
+    if count is not None:
+        n = min(max(int(count.reshape(-1)[0]), 0), points.shape[0])
+        w = torch.zeros(points.shape[0], dtype=torch.float32,
+                        device=points.device)
+        w[:n] = winding_number_plain(points[:n], v0, v1, v2)
+        return w
     m, t = points.shape[0], v0.shape[0]
     acc = torch.zeros(m, dtype=torch.float64, device=points.device)
     rows = max(1, min(m, _PAIRS_PER_CHUNK // max(t, 1)))
@@ -94,17 +110,19 @@ def _kernel_entry():
         splits.argtypes = [ctypes.c_int]
         splits.restype = ctypes.c_int
         fn = lib.winding_number_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int] \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         _entry = (fn, splits)
     return _entry
 
 
-def _launch(points, v0, v1, v2) -> torch.Tensor:
+def _launch(points, v0, v1, v2, count) -> torch.Tensor:
     """The kernel over ``points`` in slices whose f64 partial sums (one per
     256 triangles and point) fit in ``_PART_BYTES``; a point's ``w`` does
-    not depend on its slice.  Counts each launch."""
+    not depend on its slice.  The slices follow the batch's size, never
+    ``count``: each launch evaluates its rows below ``count`` (all of them
+    without one).  Counts each launch."""
     global launches
     fn, splits = _kernel_entry()
     m, t = points.shape[0], v0.shape[0]
@@ -113,13 +131,14 @@ def _launch(points, v0, v1, v2) -> torch.Tensor:
     step = max(1, min(m, _PART_BYTES // (8 * spans)))
     part = torch.empty(spans * step, dtype=torch.float64, device=dev)
     w = torch.empty(m, dtype=torch.float32, device=dev)
+    count_ptr = None if count is None else count.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lo in range(0, m, step):
             n = min(step, m - lo)
             rc = fn(points[lo:].data_ptr(), v0.data_ptr(), v1.data_ptr(),
-                    v2.data_ptr(), n, t, part.data_ptr(), w[lo:].data_ptr(),
-                    stream)
+                    v2.data_ptr(), count_ptr, lo, n, t, part.data_ptr(),
+                    w[lo:].data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(
                     f"winding_number kernel launch failed: CUDA error {rc} "
@@ -129,9 +148,12 @@ def _launch(points, v0, v1, v2) -> torch.Tensor:
 
 
 def winding_number(points: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
-                   v2: torch.Tensor) -> torch.Tensor:
+                   v2: torch.Tensor, count: torch.Tensor = None
+                   ) -> torch.Tensor:
     """Winding number ``w [M]`` f32 of the mesh of triangles ``(v0, v1, v2)``
-    (each ``[T, 3]`` f32) at ``points [M, 3]`` f32.
+    (each ``[T, 3]`` f32) at ``points [M, 3]`` f32; with ``count`` (a
+    one-element int32 tensor on the points' device) at the first ``count``
+    points only, ``w = 0`` at the rest.
 
     A CPU tensor runs :func:`winding_number_plain`; a CUDA tensor launches
     the hand-written kernel.  Any other device, dtype or layout raises."""
@@ -150,12 +172,19 @@ def winding_number(points: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
     if len({x.device for x in tensors}) != 1:
         raise ValueError("winding_number: points and triangles lie on "
                          "different devices")
+    if count is not None and (count.dtype != torch.int32
+                              or count.numel() != 1
+                              or count.device != points.device):
+        raise ValueError(f"winding_number: count must be one int32 on the "
+                         f"points' device, got {count.dtype} "
+                         f"{tuple(count.shape)} on {count.device}")
     if points.device.type == "cpu":
-        return winding_number_plain(points, v0, v1, v2)
+        return winding_number_plain(points, v0, v1, v2, count)
     if points.device.type != "cuda":
         raise RuntimeError(f"winding_number has no kernel for device "
                            f"{points.device}")
-    if not all(x.is_contiguous() for x in tensors):
+    if not all(x.is_contiguous() for x in tensors) or (
+            count is not None and not count.is_contiguous()):
         raise ValueError("winding_number expects contiguous tensors")
     m = points.shape[0]
     if m >= 2 ** 31 or t >= 2 ** 31:
@@ -163,4 +192,4 @@ def winding_number(points: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
                          f"exceed the int32 count")
     if m == 0:
         return torch.empty(0, dtype=torch.float32, device=points.device)
-    return _launch(points, v0, v1, v2)
+    return _launch(points, v0, v1, v2, count)

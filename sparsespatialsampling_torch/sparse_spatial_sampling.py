@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .engine.graphs import register_worker
 from .engine.tree import SamplingTree
 
 logger = logging.getLogger(__name__)
@@ -195,6 +196,8 @@ class SparseSpatialSampling:
 
         prefetch["k"] = k
         prefetch["thread"] = threading.Thread(target=build, daemon=True)
+        # a later run's CUDA graph capture waits for it
+        register_worker(prefetch["thread"])
         prefetch["thread"].start()
         return prefetch
 
