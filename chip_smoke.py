@@ -27,6 +27,21 @@ Phases:
   kernel, the plain version and ``torch.topk`` (a yardstick the port never
   calls) from CUDA-graph replays over copies of the input that do not fit
   in L2 together (``cuda_ms``), beside the memory bound;
+- ``grid_select_kernel``: both entries of ``grid_select`` (the grid kNN's
+  fused scoring and canonical selection) against their plain versions,
+  ``(sq, idx, sel)`` bitwise, filler rows included: at every grid call
+  site's shape on the layouts ``KNNIndex`` builds from the ``grid3d`` and
+  ``oat2d`` clouds (the epoch's dilated rows [65 536, 384] k=26 and
+  [11 520, 192] k=8, the ring's radius-4 slabs [1 024, 729·32] k=26 whole
+  and half masked and [1 024, 81·C] k=8, the blocked layout's [4 320,
+  27·32], a shard's unsorted rows [71 040, 864] k=26), timed beside the
+  plain version, the parent's unfused chain (``unfused_ms``: the plain
+  distances, ``topk_smallest`` and the canonical sort) and the bound;
+  then on 3D and 2D lattice clouds (a tie at every k-th place; queries
+  on lattice points, some outside the bbox), a pad-heavy layout whose
+  rows run out of real candidates (ties among pad slots at equal ``(sq,
+  idx)``), capacity 4 with k + 8 above the row width, and k = 1 and the
+  queue's 256;
 - ``full_scan``: 2 048 queries over a 120 000-point cylinder-wake cloud
   through the full scan (``ops/knn.py:_search``) on the card and on the
   CPU; ``(sq, idx)`` must be bitwise equal;
@@ -179,11 +194,12 @@ Phases:
   device memory); ``mixed_mesh``, the
   ``cuda_vs_cpu`` case over the mesh ``[cuda:0, cpu]``, rows and
   iterations identical to ``cuda_vs_cpu``'s (an operation that mixes
-  devices without an explicit move raises there).  The kernel selects at
-  four sharded call sites: ``shard_tile`` and ``shard_tile_merge`` (a
-  shard's full-scan tiles and their merge), ``shard_merge`` (the
-  shards' candidates on the root) and ``shard_grid_select`` (the owner's
-  selection on its unsorted grid rows); each must launch in the phase.
+  devices without an explicit move raises there).  The kernels select at
+  four sharded call sites: ``topk_smallest`` at ``shard_tile`` and
+  ``shard_tile_merge`` (a shard's full-scan tiles and their merge) and
+  ``shard_merge`` (the shards' candidates on the root), ``grid_select`` at
+  ``shard_grid_select`` (the owner's scoring and selection on its
+  unsorted grid rows); each must launch in the phase.
 
 Every export runs on the JAX package's default route, the host route:
 the kNN on the card, the weights in numpy, the metric in float64 and the
@@ -217,10 +233,11 @@ elsewhere.
 The launch counters are set to 0 just before each main-path run and read
 just after it; every main-path run must have launched every kernel of its
 path (``winding_number`` is on ``stl3d``'s only), from each of its required
-call sites (the grid selection, the ring's, the full scan's per-tile
-selection and its merge; the blocked layout's in the ``blocked_layout``
-run), the sites' launches must add up to the kernel's
-counter, and no selection may have gone to the stable sort.  The largest
+call sites (``grid_select``'s: the grid query, the ring's, the blocked
+layout's in the ``blocked_layout`` run, a shard's; ``topk_smallest``'s:
+the full scan's per-tile selection and its merge), each kernel's sites'
+launches must add up to its counter, and no selection may have gone to
+the stable sort.  The largest
 kernel input each call site got in a main-path run is held (a reference,
 not a copy) and, after the run, compared and timed again, so the reported
 times are at the shapes the main path gives the kernel.
@@ -413,18 +430,311 @@ def phase_kernel() -> dict:
     return out
 
 
-# the kNN function that calls the kernel → its call site's name
-# (:func:`site_of`): ``_tile_select`` and ``_score_candidates`` (the merge
-# of the tiles' candidates) select for the single-device full scan
-# (``_search``) and for a shard's (``_shard_candidates``);
-# ``_topk_canonical`` selects for ``_blocked_topk``, whose radius tells the
-# ring from the blocked layout, and for the sharded index's merge and grid
-SITES = {"_dilated_select": "grid_select"}
+def lattice(d: int, n: int) -> np.ndarray:
+    """The unit lattice of n points an axis: a query at a lattice point
+    has its k-th neighbour inside a tie of equal distances."""
+    xs = np.arange(n, dtype=np.float64)
+    return np.stack(np.meshgrid(*([xs] * d), indexing="ij"),
+                    -1).reshape(-1, d)
+
+
+def pad_heavy_layout(d: int, c: int, n_cells: int, seed: int):
+    """A seeded blocked layout of ``n_cells`` cells of capacity ``c`` plus
+    the all-pad sentinel row: each cell holds 0 to c members (distinct
+    ids below 100,000, coordinates in the unit cube), the other slots the
+    pad index 100,000 at coordinates 1e15, as ``KNNIndex`` pads them."""
+    rng = np.random.default_rng(seed)
+    pts = np.full((n_cells + 1, c, d), 1e15, np.float32)
+    ids = np.full((n_cells + 1, c), 100_000, np.int32)
+    members = rng.permutation(100_000)[:n_cells * c].reshape(n_cells, c)
+    for cell, m in enumerate(rng.integers(0, c + 1, n_cells)):
+        pts[cell, :m] = rng.uniform(0.0, 1.0, (m, d))
+        ids[cell, :m] = members[cell, :m]
+    return (torch.from_numpy(pts).cuda(), torch.from_numpy(ids).cuda())
+
+
+def phase_grid_select_kernel() -> dict:
+    """``grid_select`` against its plain version, bitwise, at every call
+    site's shape on layouts ``KNNIndex`` builds from the workloads' clouds
+    (timed), then on lattice clouds (ties at the k-th place), a pad-heavy
+    layout whose rows run out of real candidates, and the edges of k."""
+    from sparsespatialsampling_torch.ops import grid_select as gs, knn
+    t0 = time.perf_counter()
+    out = {"phase": "grid_select_kernel", "cases": {}}
+    rng = np.random.default_rng(11)
+
+    def layout(pts):
+        index = knn.KNNIndex(pts, device="cuda")
+        return index, index._grid
+
+    def centred(index, q):
+        return index._queries_f32(np.asarray(q, np.float64) - index._shift)
+
+    def dil_flat(g, qf):
+        return knn._grid_query_margin(qf, g["origin"], g["inv_h"],
+                                      g["dims"])[0]
+
+    def nb_flat(g, qf, radius):
+        return knn._grid_neighborhood(qf, g["cell_list"].shape[0],
+                                      g["origin"], g["inv_h"], g["dims"],
+                                      radius)[0]
+
+    def unsorted_rows(g):
+        """A shard's rows: each cell's 3^d slabs concatenated, unsorted."""
+        nb = torch.from_numpy(knn._grid_neighbor_table(
+            g["dims"].cpu().numpy(), g["cell_list"].shape[0] - 1)).cuda()
+        n = nb.shape[0]
+        return (g["cell_pts"][nb].reshape(n, -1).contiguous(),
+                g["cell_list"][nb].reshape(n, -1).contiguous())
+
+    def case(name, entry, args, timed=False):
+        out["cases"][name] = check_grid(entry, args, timed=timed)
+
+    # the call sites' shapes, timed
+    xyz, _, bounds = cylinder_wake_3d()
+    i3, g3 = layout(xyz)
+    out["layout_3d"] = {"C": g3["C"], "keep": g3["_dil_keep"],
+                        "rows": int(g3["cell_list"].shape[0])}
+    q = centred(i3, rng.uniform(bounds[0], bounds[1], (65536, 3)))
+    case("grid_select", "grid_select_dilated",
+         (q, g3["dil_pts"], g3["dil_cand"], dil_flat(g3, q), 26, True), True)
+    # the ring's rows: queries beside the cloud's cylindrical hole, half of
+    # them marked as a ring pass leaves them
+    ang = rng.uniform(0, 2 * np.pi, 1024)
+    rad = rng.uniform(0.05, 0.07, 1024)
+    ring_q = centred(i3, np.stack([0.2 + rad * np.cos(ang),
+                                   0.2 + rad * np.sin(ang),
+                                   rng.uniform(0.0, 0.41, 1024)], 1))
+    ring_flat = nb_flat(g3, ring_q, 4)
+    args = (ring_q, g3["cell_pts"], g3["cell_list"], ring_flat, 26)
+    case("ring_select", "grid_select_blocked", args, True)
+    half = torch.from_numpy(rng.uniform(size=1024) < 0.5).cuda()
+    case("ring_select_half_masked", "grid_select_blocked", args + (half,),
+         True)
+    q = centred(i3, rng.uniform(bounds[0], bounds[1], (4320, 3)))
+    case("blocked_select", "grid_select_blocked",
+         (q, g3["cell_pts"], g3["cell_list"], nb_flat(g3, q, 1), 26), True)
+    rows_pts, rows_cand = unsorted_rows(g3)
+    q = centred(i3, rng.uniform(bounds[0], bounds[1], (71040, 3)))
+    case("shard_grid_select", "grid_select_dilated",
+         (q, rows_pts, rows_cand, dil_flat(g3, q), 26, False), True)
+    del rows_pts, rows_cand
+    # the edges of k on the 3D rows: one, and the queue's 256
+    q = centred(i3, rng.uniform(bounds[0], bounds[1], (1024, 3)))
+    flat = dil_flat(g3, q)
+    case("k1", "grid_select_dilated",
+         (q, g3["dil_pts"], g3["dil_cand"], flat, 1, True))
+    case("k256", "grid_select_dilated",
+         (q, g3["dil_pts"], g3["dil_cand"], flat, 256, True))
+    case("ring_kk256", "grid_select_blocked",
+         (ring_q[:256], g3["cell_pts"], g3["cell_list"], ring_flat[:256],
+          248))
+    del i3, g3
+    xy, _, _ = synthetic_oat15()
+    i2, g2 = layout(xy)
+    out["layout_2d"] = {"C": g2["C"], "keep": g2["_dil_keep"],
+                        "rows": int(g2["cell_list"].shape[0])}
+    q = centred(i2, rng.uniform([-0.5, -0.5], [1.5, 0.5], (11520, 2)))
+    case("grid_select_2d", "grid_select_dilated",
+         (q, g2["dil_pts"], g2["dil_cand"], dil_flat(g2, q), 8, True), True)
+    case("ring_select_2d", "grid_select_blocked",
+         (q[:1024], g2["cell_pts"], g2["cell_list"],
+          nb_flat(g2, q[:1024], 4), 8), True)
+    del i2, g2
+
+    # lattices: every k-th place a tie; queries on lattice points and on
+    # cell corners, some outside the bbox
+    for d, n, k in ((3, 48, 26), (2, 320, 8)):
+        pts = lattice(d, n)
+        index, g = layout(pts)
+        on = pts[rng.choice(pts.shape[0], 2048, replace=False)]
+        off = rng.uniform(-3.0, n + 2.0, (512, d)).round()
+        q = centred(index, np.concatenate([on, off]))
+        rows_pts, rows_cand = unsorted_rows(g)
+        flat = dil_flat(g, q)
+        case(f"lattice{d}d_dilated", "grid_select_dilated",
+             (q, g["dil_pts"], g["dil_cand"], flat, k, True))
+        case(f"lattice{d}d_unsorted_rows", "grid_select_dilated",
+             (q, rows_pts, rows_cand, flat, k, False))
+        case(f"lattice{d}d_blocked", "grid_select_blocked",
+             (q, g["cell_pts"], g["cell_list"], nb_flat(g, q, 1), k))
+        case(f"lattice{d}d_ring_masked", "grid_select_blocked",
+             (q[:512], g["cell_pts"], g["cell_list"], nb_flat(g, q[:512], 4),
+              k, torch.arange(512, device=q.device) % 3 > 0))
+        del index, g, rows_pts, rows_cand
+
+    # pad-heavy rows (70 % of the slabs the sentinel's, cells part empty,
+    # queries up to 5 units outside the unit cube): pads are selected,
+    # and ties at equal (sq, idx) among them go to the lower slot
+    for d, c, k in ((3, 16, 26), (2, 4, 30), (2, 4, 36)):
+        cell_pts, cell_list = pad_heavy_layout(d, c, 64, seed=d * c + k)
+        r = 3 ** d
+        flat = torch.from_numpy(np.where(
+            rng.uniform(size=(2048, r)) < 0.7, 64,
+            rng.integers(0, 64, (2048, r)))).cuda()
+        q = torch.from_numpy(rng.uniform(-5.0, 6.0, (2048, d)).astype(
+            np.float32)).cuda()
+        case(f"pad_heavy_{d}d_c{c}_k{k}", "grid_select_blocked",
+             (q, cell_pts, cell_list, flat, k))
+        # the same slabs as dilated rows: sorted by index (pads last) and
+        # unsorted
+        rows = flat[:64]
+        keep = r * c
+        dil_pts, dil_cand = knn._dilate_sorted(cell_pts, cell_list, rows,
+                                               keep)
+        row_of = torch.from_numpy(rng.integers(0, 64, 2048)).cuda()
+        if k <= keep:
+            case(f"pad_heavy_{d}d_c{c}_k{k}_sorted", "grid_select_dilated",
+                 (q, dil_pts, dil_cand, row_of, k, True))
+        case(f"pad_heavy_{d}d_c{c}_k{k}_unsorted", "grid_select_dilated",
+             (q, cell_pts[rows].reshape(64, -1).contiguous(),
+              cell_list[rows].reshape(64, -1).contiguous(), row_of, k,
+              False))
+    out["phase_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# H100 SXM data sheet: the f64 rate outside the tensor cores
+F64_OPS_PER_S = 34e12
+
+
+def grid_bound(entry: str, a: dict) -> dict:
+    """Least time of a ``grid_select`` call, from its arguments ``a`` (by
+    name): the bytes it must move over the memory rate against its
+    operations over their rates.  Bytes: the scored rows' queries, row
+    ids and mask, the candidates' coordinates, the selected candidates'
+    ids, the outputs; the coordinates counted once for each distinct row
+    or slab the call reads (``bound_ms``) and once for each query that
+    reads them (``bound_rows_ms``: the candidate gather of the unfused
+    chain).  Operations: per candidate d subtractions, a product and a
+    compare in f32, d - 1 products and sums in f64.  Rows a mask leaves
+    out count as their filler's writes."""
+    queries, k, flat = a["queries"], a["k"], a["flat"]
+    q, d = queries.shape
+    if entry == "grid_select_dilated":
+        w = a["dil_cand"].shape[1]
+        kk = k if a["sorted_rows"] else min(k + 8, w)
+        active, used = q, flat
+        distinct = torch.unique(flat).numel() * w * d * 4
+        ids = q * (8 + kk * 4)
+    else:
+        c = a["cell_list"].shape[1]
+        w = flat.shape[1] * c
+        kk = min(k + 8, w)
+        mask = a["mask"]
+        used = flat if mask is None else flat[mask]
+        active = used.shape[0]
+        distinct = torch.unique(used).numel() * c * d * 4
+        ids = active * (flat.shape[1] * 8 + kk * 4) + (0 if mask is None
+                                                       else q)
+    fixed = active * d * 4 + ids + q * k * 16
+    n = active * w
+    t_ops = (n * (d + 2) / F32_OPS_PER_S
+             + n * 2 * (d - 1) / F64_OPS_PER_S) * 1e3
+
+    def bound(coords):
+        t_bytes = (coords + fixed) / HBM_BYTES_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+    (b, by), (b_rows, by_rows) = bound(distinct), bound(n * d * 4)
+    return {"bound_ms": b, "bound_by": by, "bound_rows_ms": b_rows,
+            "bound_rows_by": by_rows, "bound_bytes": distinct + fixed,
+            "bound_rows_bytes": n * d * 4 + fixed, "scored_rows": active}
+
+
+def unfused(entry: str, a: dict):
+    """The call as the parent commit ran it (the ``unfused_ms`` route):
+    the plain chain's gather and f64 distance arithmetic as eager
+    operators, the selection through the ``topk_smallest`` kernel, the
+    canonical sort and the filler as eager operators."""
+    from sparsespatialsampling_torch.ops import grid_select as gs, topk
+    queries, k, flat = a["queries"], a["k"], a["flat"]
+    q, d = queries.shape
+    if entry == "grid_select_dilated":
+        sq = gs._sqsum(queries[:, None, :]
+                       - a["dil_pts"][flat].reshape(q, -1, d))
+        if a["sorted_rows"]:
+            sq, sel = topk.topk_smallest(sq, k)
+            return sq, a["dil_cand"][flat[:, None], sel.long()].long(), sel
+        return gs.canonical_topk(sq, a["dil_cand"][flat], k,
+                                 topk.topk_smallest)
+    d2 = gs._sqsum(queries[:, None, None, :]
+                   - a["cell_pts"][flat]).reshape(q, -1)
+    out = gs.canonical_topk(d2, a["cell_list"][flat].reshape(q, -1), k,
+                            topk.topk_smallest)
+    return gs.fill_unmarked(a["mask"], *out)
+
+
+def check_grid(entry: str, args: tuple, kwargs: dict = None,
+               timed: bool = True) -> dict:
+    """A ``grid_select`` entry (``grid_select_dilated`` or
+    ``grid_select_blocked``) against its plain version on the card on the
+    same input: ``sq``, ``idx`` and ``sel`` bitwise, filler rows included;
+    CUDA-graph times of the kernel, the plain version and the unfused
+    chain (:func:`unfused`), beside the bound (:func:`grid_bound`).  No
+    single PyTorch call computes this function (these roundings, this tie
+    order), so ``library_ms`` is None."""
+    import inspect
+    from sparsespatialsampling_torch.ops import grid_select as gs
+    fn, plain = getattr(gs, entry), getattr(gs, entry + "_plain")
+    bound_args = inspect.signature(fn).bind(*args, **(kwargs or {}))
+    bound_args.apply_defaults()
+    a = bound_args.arguments
+    got, ref = fn(**a), plain(**a)
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in zip(got, ref)]
+    finite = torch.isfinite(ref[0])
+    err = float((got[0][finite] - ref[0][finite]).abs().max()) \
+        if finite.any() else 0.0
+    q = a["queries"].shape[0]
+    w = (a["dil_cand"].shape[1] if entry == "grid_select_dilated"
+         else a["flat"].shape[1] * a["cell_list"].shape[1])
+    if not all(same):
+        bad = ~((got[0] == ref[0]) & (got[1] == ref[1])
+                & (got[2] == ref[2])).all(dim=1)
+        raise AssertionError(
+            f"{entry} kernel disagrees with its plain version at [{q}, {w}] "
+            f"k={a['k']}: sq, idx, sel equal {same}, {int(bad.sum())} rows "
+            f"differ (first {torch.nonzero(bad).flatten()[:4].tolist()}), "
+            f"max |dsq| {err}")
+    res = {"entry": entry, "shape": [q, w], "k": a["k"],
+           "bitwise_equal_plain": True, "max_abs_err": err}
+    if entry == "grid_select_dilated":
+        res["sorted_rows"] = a["sorted_rows"]
+    elif a["mask"] is not None:
+        res["masked_out_rows"] = int((~a["mask"]).sum())
+    if timed:
+        pts = "dil_pts" if entry == "grid_select_dilated" else "cell_pts"
+
+        def with_pts(call):
+            return lambda t: call(**{**a, pts: t})
+        res.update(
+            ms=cuda_ms(with_pts(fn), a[pts]),
+            plain_ms=cuda_ms(with_pts(plain), a[pts], min_reps=3),
+            unfused_ms=cuda_ms(with_pts(lambda **b: unfused(entry, b)),
+                               a[pts], min_reps=3),
+            library_ms=None, **grid_bound(entry, a))
+    return res
+
+
+# The kNN function that calls a kernel → its call site's name
+# (:func:`site_of`).  ``grid_select``'s dilated entry is called by
+# ``_dilated_select``, for the single-device grid query (``_dilated_topk``)
+# and a shard's (``_shard_grid_select``); its blocked entry by
+# ``_blocked_topk``, whose radius tells the ring from the blocked layout.
+# ``topk_smallest`` selects in ``_tile_select`` and ``_score_candidates``
+# (the merge of the tiles' candidates), for the single-device full scan
+# (``_search``) and a shard's (``_shard_candidates``), and in
+# ``canonical_topk`` for the merge of a mesh's full route (``_shard_merge``).
 RING, BLOCKED = "ring_select", "blocked_select"
 SHARD_SITES = ("shard_tile", "shard_tile_merge", "shard_merge",
                "shard_grid_select")
-_CANONICAL_CALLERS = {"_shard_merge": "shard_merge",
-                      "_shard_grid_select": "shard_grid_select"}
+GRID_SITES = ("grid_select", RING, BLOCKED, "shard_grid_select")
+# the kernel each call site launches
+KERNEL_OF = {**dict.fromkeys(GRID_SITES, "grid_select"),
+             **dict.fromkeys(("full_scan_tile", "full_scan_merge",
+                              "shard_tile", "shard_tile_merge",
+                              "shard_merge"), "topk_smallest")}
 # the sites every run of a phase must have launched from
 MAIN_SITES = ("grid_select", RING, "full_scan_tile", "full_scan_merge")
 # bench workload 6's (cells, iterations) on the port, on one device and
@@ -450,17 +760,24 @@ LOOP_SHARE = 0.9
 
 def site_of(frame) -> str:
     name, caller = frame.f_code.co_name, frame.f_back.f_code.co_name
-    if name == "_topk_canonical":
-        if caller in _CANONICAL_CALLERS:
-            return _CANONICAL_CALLERS[caller]
-        return RING if frame.f_back.f_locals["radius"] > 1 else BLOCKED
+    if name == "_dilated_select":
+        return ("shard_grid_select" if caller == "_shard_grid_select"
+                else "grid_select")
+    if name == "_blocked_topk":
+        return RING if frame.f_locals["radius"] > 1 else BLOCKED
+    if name == "canonical_topk":
+        # ``_topk_canonical`` of a mesh's merge; any other is an unfused
+        # chain, which the main path never takes
+        return ("shard_merge"
+                if frame.f_back.f_back.f_code.co_name == "_shard_merge"
+                else f"unfused_chain_of_{frame.f_back.f_back.f_code.co_name}")
     if name == "_score_candidates":
         return ("shard_tile_merge" if caller == "_shard_candidates"
                 else "full_scan_merge")
     if name == "_tile_select":
         return ("shard_tile" if frame.f_back.f_back.f_code.co_name
                 == "_shard_candidates" else "full_scan_tile")
-    return SITES.get(name, name)
+    return name
 
 
 class GraphTap:
@@ -516,67 +833,93 @@ class GraphTap:
 
 
 class KernelTap(GraphTap):
-    """Holds the largest input the selection kernel got at each call site
+    """Holds the largest input each selection kernel got at each call site
     during a main-path run, and counts the launches per site (wraps the
-    module function the kNN calls).  A site's count is what the wrapper's
+    module functions the kNN calls: ``topk.topk_smallest`` and
+    ``grid_select``'s two entries).  A site's count is what the wrapper's
     own launch counter gained during the site's calls; a call captured in
     a window's graph counts once for each replay (:class:`GraphTap`).  It
     holds inputs of eager calls only, references, not copies, so the
-    run's walls carry no extra work: each is a fresh tensor that nothing
-    writes to after the selection (a captured call's input is the graph's
-    pool memory, which every replay rewrites).  It also counts the calls
-    of ``_select_sorted``, the stable sort that takes selections wider
-    than the kernel's queue."""
+    run's walls carry no extra work: each is a fresh tensor, or the
+    index's layout, that nothing writes to after the selection (a captured
+    call's input is the graph's pool memory, which every replay
+    rewrites).  ``inputs[site]`` is ``(entry, args, kwargs)``, ``entry``
+    the wrapped function's name.  It also counts the calls of
+    ``_select_sorted``, the stable sort that takes selections wider than
+    the kernels' queue."""
 
     def __init__(self):
         super().__init__()
-        from sparsespatialsampling_torch.ops import knn, topk
-        self._topk, self._knn = topk, knn
-        self._orig_topk = topk.topk_smallest
+        from sparsespatialsampling_torch.ops import grid_select, knn, topk
+        self._knn = knn
+        self._modules = {"topk_smallest": topk,
+                         "grid_select_dilated": grid_select,
+                         "grid_select_blocked": grid_select}
+        self._entries = {name: getattr(mod, name)
+                      for name, mod in self._modules.items()}
         self._orig_sorted = knn._select_sorted
         self.inputs = {}
         self.launches = self.totals
         self.sorted_calls = 0
 
-    def __enter__(self):
-        super().__enter__()
+    def _tapped(self, name: str):
+        mod, orig = self._modules[name], self._entries[name]
 
-        def tapped(x, k):
+        def tapped(*args, **kwargs):
             site = site_of(sys._getframe(1))
             held = self.inputs.get(site)
             # a CPU shard's selection runs the plain version: nothing to
             # hold against it
-            if x.is_cuda and not self.capturing and (
-                    held is None or x.numel() > held[0].numel()):
-                self.inputs[site] = (x, k)
-            before = self._topk.launches
-            out = self._orig_topk(x, k)
-            self.note({site: self._topk.launches - before})
+            if args[0].is_cuda and not self.capturing and (
+                    held is None
+                    or work_of(name, args) > work_of(held[0], held[1])):
+                self.inputs[site] = (name, args, kwargs)
+            before = mod.launches
+            out = orig(*args, **kwargs)
+            self.note({site: mod.launches - before})
             return out
+        return tapped
+
+    def __enter__(self):
+        super().__enter__()
 
         def sorted_tapped(x, kk):
             self.sorted_calls += 1
             return self._orig_sorted(x, kk)
-        self._topk.topk_smallest = tapped
+        for name, mod in self._modules.items():
+            setattr(mod, name, self._tapped(name))
         self._knn._select_sorted = sorted_tapped
         return self
 
     def __exit__(self, *exc):
-        self._topk.topk_smallest = self._orig_topk
+        for name, mod in self._modules.items():
+            setattr(mod, name, self._entries[name])
         self._knn._select_sorted = self._orig_sorted
         super().__exit__(*exc)
 
 
+def work_of(entry: str, args: tuple) -> int:
+    """The candidates a selection call scores: the elements of its score
+    matrix, or its rows times their candidates."""
+    if entry == "topk_smallest":
+        return args[0].numel()
+    if entry == "grid_select_dilated":
+        return args[0].shape[0] * args[2].shape[1]
+    return args[3].numel() * args[2].shape[1]
+
+
 def reset_counts() -> None:
-    from sparsespatialsampling_torch.ops import topk, winding
+    from sparsespatialsampling_torch.ops import grid_select, topk, winding
     topk.launches = 0
     winding.launches = 0
+    grid_select.launches = 0
 
 
 def read_counts() -> dict:
-    from sparsespatialsampling_torch.ops import topk, winding
+    from sparsespatialsampling_torch.ops import grid_select, topk, winding
     return {"topk_smallest": topk.launches,
-            "winding_number": winding.launches}
+            "winding_number": winding.launches,
+            "grid_select": grid_select.launches}
 
 
 class WindowTap:
@@ -1099,12 +1442,13 @@ def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
 
 
 def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
-                  export=None, sites=MAIN_SITES, kernels=("topk_smallest",),
+                  export=None, sites=MAIN_SITES, kernels=None,
                   device_loop=True, mesh=False, **kw):
     """One main-path run with the counters set to 0 just before it and read
-    just after; each of ``kernels`` (those of the run's path) and each of
-    ``sites`` must have launched, and no selection may have taken the
-    stable sort.  The adaptive iterations must have taken the device loop
+    just after; each of ``kernels`` (those of the run's path; by default
+    the kernels of ``sites``) and each of ``sites`` must have launched,
+    each kernel's launches must add up over its call sites, and no
+    selection may have taken the stable sort.  The adaptive iterations must have taken the device loop
     where ``device_loop`` (and ``SamplingTree.DEVICE_LOOP``) says so, else
     the host loop (:func:`check_route`, with ``mesh`` for a sharded run);
     the route goes into the walls' ``adaptive_route``.  A geometry phase's levels must have taken the JAX
@@ -1126,15 +1470,24 @@ def main_path_run(phase: str, tmp: str, name: str, pts, metric, geometries,
         t["geometry_route"] = geometry_route(s3, geo_sync)
         check_geometry_route(phase, t["geometry_route"], geometry_loop_on(kw))
         check_graphs(phase, t["geometry_route"], mesh)
+    if kernels is None:
+        kernels = sorted({KERNEL_OF[s] for s in sites})
     missing = [n for n in kernels if counts[n] == 0]
     missing += [s for s in sites if not tap.launches.get(s)]
     if missing:
         raise AssertionError(f"{phase}: kernels or call sites never "
                              f"launched on the main path: {missing}")
-    if sum(tap.launches.values()) != counts["topk_smallest"]:
-        raise AssertionError(f"{phase}: launches per call site "
-                             f"{tap.launches} do not add up to the kernel's "
-                             f"count {counts['topk_smallest']}")
+    unknown = [s for s in tap.launches if s not in KERNEL_OF]
+    if unknown:
+        raise AssertionError(f"{phase}: selections at unknown call sites "
+                             f"{unknown} (an unfused chain)")
+    for kernel in ("topk_smallest", "grid_select"):
+        per_site = {s: n for s, n in tap.launches.items()
+                    if KERNEL_OF[s] == kernel}
+        if sum(per_site.values()) != counts[kernel]:
+            raise AssertionError(f"{phase}: launches per call site "
+                                 f"{per_site} do not add up to {kernel}'s "
+                                 f"count {counts[kernel]}")
     if tap.sorted_calls:
         raise AssertionError(f"{phase}: {tap.sorted_calls} selections took "
                              f"the stable sort on the main path")
@@ -1151,10 +1504,18 @@ def check_expected(phase: str, out: dict) -> None:
                              f"iterations, expected {EXPECTED[phase]}")
 
 
+def check_site(entry: str, args: tuple, kwargs: dict) -> dict:
+    """A held call of ``entry`` (:class:`KernelTap`) again: the kernel
+    against its plain version, bitwise, and timed."""
+    if entry == "topk_smallest":
+        return check_topk(*args, **kwargs)
+    return check_grid(entry, args, kwargs)
+
+
 def check_sites(tap) -> dict:
     """Each call site's largest main-path input, checked and timed."""
-    return {site: {**check_topk(x, k), "launches": tap.launches[site]}
-            for site, (x, k) in sorted(tap.inputs.items())}
+    return {site: {**check_site(*held), "launches": tap.launches[site]}
+            for site, held in sorted(tap.inputs.items())}
 
 
 def device_ms(event) -> float:
@@ -2603,7 +2964,7 @@ def phase_stl3d(tmp: str, stl_path: str) -> tuple:
     with WindingTap() as wtap:
         s3, _, _, t, counts, tap, _ = main_path_run(
             "stl3d", tmp, "stl", xyz, metric, geometries,
-            sites=("grid_select",), kernels=("topk_smallest", "winding_number"),
+            sites=("grid_select",), kernels=("grid_select", "winding_number"),
             **kw)
     if wtap.all.launches != counts["winding_number"]:
         raise AssertionError(f"stl3d: the winding calls' launches "
@@ -3110,12 +3471,13 @@ def phase_sharded(tmp: str, oat_ref: dict, cmp_rows: tuple) -> tuple:
     # references), checked and timed after the runs
     largest = {}
     for tap in taps:
-        for site, (x, k) in tap.inputs.items():
-            if site in SHARD_SITES and (site not in largest or x.numel()
-                                        > largest[site][0].numel()):
-                largest[site] = (x, k)
-    sites = {site: {**check_topk(x, k), "launches": launches[site]}
-             for site, (x, k) in sorted(largest.items())}
+        for site, held in tap.inputs.items():
+            if site in SHARD_SITES and (
+                    site not in largest
+                    or work_of(*held[:2]) > work_of(*largest[site][:2])):
+                largest[site] = held
+    sites = {site: {**check_site(*held), "launches": launches[site]}
+             for site, held in sorted(largest.items())}
     out["kernel_at_call_sites"] = sites
     out["phase_wall_s"] = time.perf_counter() - t0
     return out, counts
@@ -3187,6 +3549,8 @@ def main() -> int:
     try:
         kernel = phase_kernel()
         emit(kernel)
+        grid_kernel = phase_grid_select_kernel()
+        emit(grid_kernel)
         emit(phase_full_scan())
         grid3d, counts3d = phase_grid3d(tmp)
         emit(grid3d)
@@ -3225,43 +3589,71 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # every number below was measured in this run; the top-level times are
-    # those at the grid3d full-scan tile, the call site with the most work,
-    # and "sites" holds each grid3d call site's largest input and the
-    # blocked layout's from the blocked_layout run
+    # every number below was measured in this run.  topk_smallest: the
+    # top-level times are those at the grid3d full-scan tile, the call site
+    # with the most work, and "sites" holds each of its call sites' largest
+    # main-path input; grid_select: the top-level times are those at the
+    # grid3d ring pass, and "sites" holds each grid call site's largest
+    # main-path input (the blocked layout's from the blocked_layout run, a
+    # shard's from the sharded phase) and "cases" the kernel phase's
     sites3d = grid3d["kernel_at_call_sites"]
     sites = {**sites3d,
              BLOCKED: blocked["kernel_at_call_sites"][BLOCKED],
              **sharded["kernel_at_call_sites"]}
-    checks = (kernel["cases"] + list(sites3d.values())
-              + [c for phase in (grid2d, blocked, oat, cyl, mdl, mdl25k, c2d,
-                                 stl, sharded)
-                 for c in phase["kernel_at_call_sites"].values()])
+    phases = {"grid3d": (grid3d, counts3d), "grid2d_metric": (grid2d, counts2d),
+              "blocked_layout": (blocked, counts_blk), "oat2d": (oat, counts_oat),
+              "cylinder3d": (cyl, counts_cyl), "mdl2d": (mdl, counts_mdl),
+              "mdl2d_25k": (mdl25k, counts_mdl25k),
+              "c2d_reltol": (c2d, counts_c2d), "stl3d": (stl, counts_stl),
+              "sharded": (sharded, None)}
+    at_sites = [c for phase, _ in phases.values()
+                for c in phase["kernel_at_call_sites"].values()]
+
+    def launches(kernel):
+        return {**{f"launches_{name}": counts[kernel]
+                   for name, (_, counts) in phases.items() if counts},
+                **{f"launches_{case}": c[kernel]
+                   for case, c in counts_sharded.items()}}
+
+    def site_lines(kernel, keys):
+        return {site: {key: c[key] for key in keys + ("launches",)}
+                for site, c in sites.items() if KERNEL_OF[site] == kernel}
+    topk_checks = kernel["cases"] + [c for c in at_sites if "entry" not in c]
+    grid_checks = (list(grid_kernel["cases"].values())
+                   + [c for c in at_sites if "entry" in c])
     timed = ("shape", "k", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    grid_timed = timed + ("unfused_ms", "bound_rows_ms", "bound_rows_by")
     epoch = kernel["cases"][0]
     emit({"kernels": [{
         "name": "topk_smallest", "route": "cuda",
         "source": "sparsespatialsampling_torch/csrc/topk_smallest.cu",
         "replaces": "sparsespatialsampling_tpu/ops/pallas_topk.py:62",
-        "launches": counts3d["topk_smallest"],
-        "launches_grid2d_metric": counts2d["topk_smallest"],
-        "launches_blocked_layout": counts_blk["topk_smallest"],
-        "launches_oat2d": counts_oat["topk_smallest"],
-        "launches_cylinder3d": counts_cyl["topk_smallest"],
-        "launches_mdl2d": counts_mdl["topk_smallest"],
-        "launches_mdl2d_25k": counts_mdl25k["topk_smallest"],
-        "launches_c2d_reltol": counts_c2d["topk_smallest"],
-        "launches_stl3d": counts_stl["topk_smallest"],
-        **{f"launches_{case}": c["topk_smallest"]
-           for case, c in counts_sharded.items()},
+        "launches": counts3d["topk_smallest"], **launches("topk_smallest"),
         "launches_route": "device loop, blocked_layout's the host loop",
-        "bitwise_equal_plain": all(c["bitwise_equal_plain"] for c in checks),
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "bitwise_equal_plain": all(c["bitwise_equal_plain"]
+                                   for c in topk_checks),
+        "max_abs_err": max(c["max_abs_err"] for c in topk_checks),
         **{key: sites3d["full_scan_tile"][key] for key in timed},
-        "sites": {site: {key: c[key] for key in timed + ("launches",)}
-                  for site, c in sites.items()},
-        "epoch_shape": {key: epoch[key] for key in timed}},
+        "sites": site_lines("topk_smallest", timed),
+        "epoch_shape": {key: epoch[key] for key in timed}}, {
+        "name": "grid_select", "route": "cuda",
+        "source": "sparsespatialsampling_torch/csrc/grid_select.cu",
+        "replaces": "sparsespatialsampling_tpu/ops/knn.py:593",
+        "replaces_what": "_dilated_select (:593), _grid_candidates (:317) + "
+                         "_topk_canonical (:341) of _grid_query_kernel "
+                         "(:360), and the ring's do_ring "
+                         "(engine/tree.py:1124-1163): XLA programs the JAX "
+                         "package fuses, not Pallas kernels",
+        "launches": counts3d["grid_select"], **launches("grid_select"),
+        "launches_route": "device loop, blocked_layout's the host loop",
+        "bitwise_equal_plain": all(c["bitwise_equal_plain"]
+                                   for c in grid_checks),
+        "max_abs_err": max(c["max_abs_err"] for c in grid_checks),
+        **{key: sites3d[RING][key] for key in grid_timed},
+        "sites": site_lines("grid_select", grid_timed),
+        "cases": {name: {key: c[key] for key in grid_timed if key in c}
+                  for name, c in grid_kernel["cases"].items() if "ms" in c}},
         winding_entry(wk["cases"], stl, counts_stl)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

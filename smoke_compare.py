@@ -7,8 +7,8 @@ The first form runs two checkouts: each run is a fresh process in one
 checkout, in the order OLD, NEW, NEW, OLD, then NEW, OLD, OLD, NEW, and so
 on for ROUNDS (default 2) pairs of pairs.  A run builds that checkout's
 kernels and calls the checkout's own ``chip_smoke.py`` phases
-``grid2d_metric``, ``oat2d``, ``cylinder3d`` and ``mdl2d`` (each checks
-its pinned grid), then prints one JSON line of their ``refine_total``,
+``grid2d_metric``, ``oat2d``, ``cylinder3d``, ``mdl2d``, ``grid3d`` and
+``stl3d`` (each checks its pinned grid), then prints one JSON line of their ``refine_total``,
 ``init`` and epoch walls.  Write an older commit into a git-ignored
 directory first, e.g. ``git archive <commit> | tar -x -C
 _smoke_checkout/parent``.
@@ -32,7 +32,8 @@ import subprocess
 import sys
 import tempfile
 
-PHASES = ("grid2d_metric", "oat2d", "cylinder3d", "mdl2d")
+PHASES = ("grid2d_metric", "oat2d", "cylinder3d", "mdl2d", "grid3d",
+          "stl3d")
 # the switches of each route: (DEVICE_LOOP, _LOOP_GRAPHS)
 ROUTES = {"graphs": (True, True), "eager_body": (True, False),
           "host_loop": (False, True)}

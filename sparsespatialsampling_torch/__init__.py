@@ -10,9 +10,10 @@ surfaces (``GeometrySTL3D``), the bbox pre-select route and the 2:1 balance
 exported snapshots (``compute_svd``, ``write_svd_s_cube_to_file``), exact
 DMD (``compute_dmd``) and the flowtorch-gated OpenFOAM loaders.  The
 numerics run on a torch device (``device=None`` means the card); the grid
-kNN selects through a hand-written CUDA kernel (``csrc/topk_smallest.cu``),
-and the STL inside test sums its near-band winding numbers through another
-(``csrc/winding_number.cu``).  This package imports no JAX.
+kNN scores and selects its candidates in a hand-written CUDA kernel
+(``csrc/grid_select.cu``), the full scan selects through another
+(``csrc/topk_smallest.cu``), and the STL inside test sums its near-band
+winding numbers through a third (``csrc/winding_number.cu``).  This package imports no JAX.
 """
 from .version import __version__
 from .sparse_spatial_sampling import (SparseSpatialSampling, list_geometries,

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which
 ``ctypes`` loads.  The build writes into ``_build/`` beside this file
 (listed in ``.gitignore``); a library is named after the hash of its
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of the headers beside it (``csrc/*.cuh``), so an edited source
+or header is rebuilt and an unchanged one is reused.
 All sources are compiled at once, one ``nvcc`` process each.
 
 Nothing here runs at import: the first kernel launch, or an explicit
@@ -44,8 +45,11 @@ def find_nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library of ``source``, named after the hash of the source, every
+    header of ``csrc/`` (which a source may include) and the flags."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(SOURCE_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 

@@ -43,10 +43,11 @@ from time import perf_counter
 
 import torch
 
-from ..ops import topk, winding
+from ..ops import grid_select, topk, winding
 
 # the kernel launch counters a capture records and a replay adds
-_COUNTERS = {"topk_smallest": topk, "winding_number": winding}
+_COUNTERS = {"topk_smallest": topk, "winding_number": winding,
+             "grid_select": grid_select}
 # why an iteration ran without a graph (``stats["eager_causes"]``)
 EAGER_CAUSES = ("warmup", "cpu", "mesh", "off")
 

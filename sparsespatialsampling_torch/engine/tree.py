@@ -5,9 +5,9 @@ arrays keyed by (level, integer lattice coordinates); creation index is
 the tie-break of every selection.  Each epoch's numerics run on the
 device in one fused function (:meth:`SamplingTree._epoch_core`): query
 centres of every new cell and its 2^d prospective children, exact kNN
-(the grid through the ``topk_smallest`` kernel, or the full scan on small
-clouds), IDW prediction, the gain formula and geometry validity, returned
-as one ``[M, 4]`` f32 array (gain, metric, invalid, bad).
+(the grid through the fused ``grid_select`` kernel, or the full scan on
+small clouds), IDW prediction, the gain formula and geometry validity,
+returned as one ``[M, 4]`` f32 array (gain, metric, invalid, bad).
 
 The adaptive iterations take one of two routes, as in the JAX package:
 
@@ -700,9 +700,11 @@ class SamplingTree:
         tried = torch.zeros_like(badq)
         for rr in plan:
             rows, m = _first_rows(badq & ~tried, rr)
+            # the rows past the marked ones are not scored (the kernel's
+            # mask): their answers would be thrown away below
             rsq, ridx, rok = _blocked_topk(queries[rows], self._knn._grid,
                                            self._n_neighbors,
-                                           _RING_LOOP_RADIUS)
+                                           _RING_LOOP_RADIUS, mask=m)
             sq[rows] = torch.where(m[:, None], rsq, sq[rows])
             nbr[rows] = torch.where(m[:, None], ridx, nbr[rows])
             badq[rows] = torch.where(m, ~rok, badq[rows])

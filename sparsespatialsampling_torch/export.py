@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``export.py`` (reference ``ExportData``,
 ``sparseSpatialSampling/export.py:40-319``).  The kNN of the cell centres
-runs on the device (:class:`~.ops.knn.KNNIndex`; the grid path selects
-through the ``topk_smallest`` kernel), and :attr:`ExportData.INTERP`
+runs on the device (:class:`~.ops.knn.KNNIndex`; the grid path scores and
+selects in the ``grid_select`` kernel), and :attr:`ExportData.INTERP`
 chooses what follows, as the JAX package's ``S3_TPU_INTERP`` does:
 
 - ``"host"`` (the default): only the ``[Q, k]`` indices come back, the

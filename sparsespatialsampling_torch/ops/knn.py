@@ -13,23 +13,23 @@ results are bitwise equal wherever both are exact:
   involved, and the result is the same on every device.
 - **Dilated bucket grid** (``_build_grid`` / :func:`_dilated_topk`): each
   grid cell stores its whole 3^d neighbourhood as one row, sorted by
-  candidate index and compacted to ``keep_w`` columns; a query scores the
-  row of its own cell by the plain delta-sum and selects with the
-  hand-written ``topk_smallest`` kernel (:mod:`.topk`), whose
-  lowest-column tie rule is the canonical order on these rows.  A row is
-  accepted only when its k-th distance lies inside the covered
+  candidate index and compacted to ``keep_w`` columns; a query's row of
+  its own cell is scored by the plain delta-sum and selected in one
+  launch of the hand-written ``grid_select`` kernel (:mod:`.grid_select`),
+  whose lowest-slot tie rule is the canonical order on these rows.  A row
+  is accepted only when its k-th distance lies inside the covered
   neighbourhood and no overflowing cell's box reaches its k-ball; every
   other row is re-answered by the full scan.
 - **Blocked bucket grid** (:func:`_blocked_topk`): the members of each
-  cell as one ``[C, d]`` slab; a query gathers the (2r+1)^d slabs around
-  its cell, whose candidates are not sorted by index, so it selects
-  ``k + 8`` through the kernel and sorts those canonically
-  (:func:`_topk_canonical`).  It answers when the dilated layout is over
-  ``KNNIndex.DIL_MAX_BYTES`` or narrower than k, and at radius 4 it is
-  the engine's ring rescue.
+  cell as one ``[C, d]`` slab; a query's (2r+1)^d slabs around its cell,
+  whose candidates are not sorted by index, are scored and their ``k + 8``
+  nearest sorted canonically by the same kernel's blocked entry.  It
+  answers when the dilated layout is over ``KNNIndex.DIL_MAX_BYTES`` or
+  narrower than k, and at radius 4 it is the engine's ring rescue.
 
-Selections wider than the kernel's queue (``k + 8 > 256``, where the JAX
-package calls ``lax.top_k``) take one stable sort (:func:`_select_sorted`).
+Selections wider than the kernels' queue (``k + 8 > 256``, where the JAX
+package calls ``lax.top_k``) keep the unfused chain: the distances as
+eager operators and one stable sort (:func:`_select_sorted`).
 
 Sums over the coordinate axis and over the k neighbours run in a fixed
 order (:func:`_sqsum`, :func:`_rowsum`): the distances then equal XLA's
@@ -45,8 +45,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from . import grid_select as _gs
 from . import morton
 from . import topk as _topk
+from .grid_select import _fma, _sort_neighbors, _sqsum
 
 DEFAULT_TILE_N = 16384
 DEFAULT_TILE_Q = 1024
@@ -55,32 +57,11 @@ DEFAULT_TILE_Q = 1024
 _DILATE_BLOCK = 8192
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a·b + c`` with one rounding, as a fused multiply-add gives it:
-    the product of two f32 values is exact in f64, so only the f64 sum and
-    the final f32 cast round (the two roundings disagree with one only when
-    the f64 sum lands exactly on an f32 midpoint, about 2^-29 of cases)."""
-    return (a.double() * b.double() + c.double()).to(a.dtype)
-
-
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root: torch's vectorised f32 ``sqrt`` on
     the CPU is not (about 0.5 % of results sit one ulp off), while the f64
     root rounded to f32 is exact on every device."""
     return torch.sqrt(x.double()).to(x.dtype)
-
-
-def _sqsum(delta: torch.Tensor) -> torch.Tensor:
-    """``Σ_a delta[..., a]²`` in axis order, each term after the first
-    added by a fused multiply-add: ``fma(d2, d2, fma(d1, d1, d0·d0))`` is
-    what XLA's CPU backend makes of ``jnp.sum(dd * dd, axis=-1)``, so the
-    port's distances equal the JAX package's bit for bit, on every
-    device."""
-    d0 = delta[..., 0]
-    out = d0 * d0
-    for a in range(1, delta.shape[-1]):
-        out = _fma(delta[..., a], delta[..., a], out)
-    return out
 
 
 def _rowsum(x: torch.Tensor) -> torch.Tensor:
@@ -101,16 +82,6 @@ def _weighted_sum(w: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     for j in range(1, w.shape[1]):
         out = out + term(j)
     return out
-
-
-def _sort_neighbors(sq: torch.Tensor, idx: torch.Tensor, *payload):
-    """Canonical neighbour order: ascending ``(sq, idx)`` lexicographic
-    (two stable sorts, minor key first); each ``payload`` tensor of the
-    same shape is permuted along."""
-    idx_s, o1 = torch.sort(idx, dim=1, stable=True)
-    sq_s, o2 = torch.sort(torch.gather(sq, 1, o1), dim=1, stable=True)
-    return (sq_s, torch.gather(idx_s, 1, o2)) + tuple(
-        torch.gather(torch.gather(p, 1, o1), 1, o2) for p in payload)
 
 
 def _idw(sq: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -418,16 +389,20 @@ def _overflow_contaminated(queries, ovf_nb, sq_max, origin, inv_h, dims,
     return ((ovf_nb > 0.5) & (dist2 <= sq_max[:, None])).any(dim=1)
 
 
-def _dilated_select(queries, dil_pts, dil_cand, flat, k: int):
+def _dilated_select(queries, dil_pts, dil_cand, flat, k: int,
+                    sorted_rows: bool = True):
     """Plain f32 delta-sum distances to the candidates of dilated rows
-    ``flat`` and the canonical top-k through the selection kernel.
-    Returns ``(sq [Q, k] f32, idx [Q, k] int64, sel [Q, k] int32)``."""
+    ``flat`` and the canonical top-k, fused in the ``grid_select`` kernel
+    (the JAX package's ``_dilated_select``): on rows sorted by index the k
+    smallest, else the ``k + 8`` re-sorted by ``(sq, idx)``, through the
+    unfused chain where that is wider than the kernel's queue.  Returns
+    ``(sq [Q, k] f32, idx [Q, k] int64, sel [Q, k])``."""
+    if sorted_rows or min(k + 8, dil_cand.shape[1]) <= _gs.MAX_K:
+        return _gs.grid_select_dilated(queries, dil_pts, dil_cand, flat, k,
+                                       sorted_rows)
     q, d = queries.shape
-    g3 = dil_pts[flat].reshape(q, -1, d)                  # [Q, keep, d]
-    sq = _sqsum(queries[:, None, :] - g3)                 # [Q, keep]
-    sq_k, sel = _topk.topk_smallest(sq, k)
-    idx = dil_cand[flat[:, None], sel.long()].long()      # [Q, k] pointwise
-    return sq_k, idx, sel
+    sq = _sqsum(queries[:, None, :] - dil_pts[flat].reshape(q, -1, d))
+    return _topk_canonical(sq, dil_cand[flat], k)
 
 
 def _dilated_topk(queries, grid: dict, k: int):
@@ -467,10 +442,11 @@ def _grid_neighborhood(anchors, n_cells_total: int, origin, inv_h, dims,
 
 
 def _grid_candidates(queries, grid: dict, radius: int):
-    """The (2r+1)^d blocked slabs around each query's cell: plain f32
-    distances ``d2 [Q, R·C]`` (:func:`_sqsum`, the same rounding as the
-    dilated rows), candidate ids ``cand [Q, R·C]``, ``margin_sq [Q]``, the
-    per-cell overflow flags ``[Q, R]``."""
+    """The (2r+1)^d blocked slabs around each query's cell as eager
+    operators (the unfused chain of selections wider than the kernel's
+    queue): plain f32 distances ``d2 [Q, R·C]`` (:func:`_sqsum`, the same
+    rounding as the dilated rows), candidate ids ``cand [Q, R·C]``,
+    ``margin_sq [Q]``, the per-cell overflow flags ``[Q, R]``."""
     cell_list = grid["cell_list"]
     flat, margin_sq = _grid_neighborhood(queries, cell_list.shape[0],
                                          grid["origin"], grid["inv_h"],
@@ -483,30 +459,35 @@ def _grid_candidates(queries, grid: dict, radius: int):
 
 
 def _topk_canonical(d2, cand, k: int):
-    """Canonical top-k of unsorted candidate rows: the ``k + 8`` nearest
-    slots (lowest slot first at equal distance, as the JAX package's stable
-    ``lax.top_k(-d2)``), their candidate ids, the ascending ``(sq, idx)``
-    sort, the first k.  The slack lets a distance tie at the k-th place
-    resolve by point index instead of by slot.  Returns ``(sq [Q, k],
-    idx [Q, k] int64, sel [Q, k] int64)``, ``sel`` the slot of each (for
-    value gathers)."""
-    kk = min(k + 8, d2.shape[1])
-    sq, sel = _selector(kk)(d2, kk)
-    sel = sel.long()
-    idx = torch.gather(cand, 1, sel).long()
-    sq, idx, sel = _sort_neighbors(sq, idx, sel)
-    return sq[:, :k], idx[:, :k], sel[:, :k]
+    """:func:`.grid_select.canonical_topk` of given distances through the
+    selection kernel up to its queue, else the stable sort (the JAX
+    package's ``_topk_canonical``): the merge of a mesh's full route and
+    the unfused chains.  Returns ``(sq, idx, sel)``, ``[Q, k]`` int64
+    ids and slots."""
+    return _gs.canonical_topk(d2, cand, k, _selector(min(k + 8, d2.shape[1])))
 
 
-def _blocked_topk(queries, grid: dict, k: int, radius: int = 1):
+def _blocked_topk(queries, grid: dict, k: int, radius: int = 1, mask=None):
     """Blocked-grid kNN of ``queries [Q, d]`` (centred f32) over the
     (2r+1)^d neighbourhood of each query's cell: ``(sq, idx, ok)`` in
     canonical order, ``ok`` marking rows provably exact (the k-th distance
     inside the covered box, no overflowing cell's box inside the k-ball).
     Radius 1 is the JAX package's ``_grid_query_kernel``; radius 4 its
-    ring rescue."""
-    d2, cand, margin_sq, ovf_nb = _grid_candidates(queries, grid, radius)
-    sq, idx, _ = _topk_canonical(d2, cand, k)
+    ring rescue.  Rows ``mask [Q]`` leaves out are not scored: they get
+    ``sq = +inf``, idx 0 and ``ok`` False."""
+    cell_list = grid["cell_list"]
+    r_cells = (2 * radius + 1) ** queries.shape[1]
+    if min(k + 8, r_cells * grid["C"]) <= _gs.MAX_K:
+        flat, margin_sq = _grid_neighborhood(queries, cell_list.shape[0],
+                                             grid["origin"], grid["inv_h"],
+                                             grid["dims"], radius)
+        sq, idx, _ = _gs.grid_select_blocked(queries, grid["cell_pts"],
+                                             cell_list, flat, k, mask)
+        ovf_nb = grid["overflow"][flat]
+    else:
+        d2, cand, margin_sq, ovf_nb = _grid_candidates(queries, grid, radius)
+        sq, idx, sel = _topk_canonical(d2, cand, k)
+        sq, idx, _ = _gs.fill_unmarked(mask, sq, idx, sel)
     sq_max = sq.max(dim=1).values
     ok = ((sq_max <= margin_sq)
           & ~_overflow_contaminated(queries, ovf_nb, sq_max, grid["origin"],

@@ -4,8 +4,10 @@ Port of the JAX package's ``parallel/knn.py`` (``ShardedKNNIndex``).  The
 cloud is centred, Morton-sorted as :class:`~..ops.knn.KNNIndex` sorts it,
 padded to a multiple of the shard count (pad rows score +inf) and cut into
 one contiguous slab per shard.  Queries are replicated; every selection
-goes through the ``topk_smallest`` kernel (or, for ``k + 8`` above its
-queue, the stable sort of ``ops/knn.py``), never ``torch.topk``.
+goes through a hand-written kernel (or, for ``k + 8`` above its queue, the
+stable sort of ``ops/knn.py``), never ``torch.topk``: the grid rows'
+scoring and selection through ``grid_select``, the full route's through
+``topk_smallest``.
 
 - **Full route** (the JAX package's ``_build`` and the engine's
   ``knn_merge``): each shard takes its ``k + 8`` best points by the ranking
@@ -34,7 +36,7 @@ import torch
 
 from ..ops import topk as _topk
 from ..ops.knn import (DEFAULT_TILE_N, DEFAULT_TILE_Q, KNNIndex, _cell_list,
-                       _fill_from_flat, _grid_neighbor_table,
+                       _dilated_select, _fill_from_flat, _grid_neighbor_table,
                        _grid_query_margin, _idw, _morton_order,
                        _overflow_contaminated, _plan_grid, _round_up,
                        _score_candidates, _sqrt, _sqsum, _topk_canonical,
@@ -238,15 +240,13 @@ class ShardedKNNIndex:
         """The queries ``q`` one shard owns, over its rows ``lflat``:
         canonical ``(sq, idx)``, the values at the selected slots (None
         without ``dil_vals``) and ``ok``, the rows provably exact."""
-        d2 = _sqsum(q[:, None, :]
-                    - shard["dil_pts"][lflat].reshape(q.shape[0], -1,
-                                                      self.n_dim))
-        sq, idx, sel = _topk_canonical(d2, shard["dil_cand"][lflat], k)
+        sq, idx, sel = _dilated_select(q, shard["dil_pts"], shard["dil_cand"],
+                                       lflat, k, sorted_rows=False)
         sq_max = sq.max(dim=1).values
         ok = (sq_max <= margin_sq) & ~_overflow_contaminated(
             q, shard["dil_ovf"][lflat], sq_max, shard["origin"],
             shard["inv_h"], shard["dims"])
-        vals = (shard["dil_vals"][lflat[:, None], sel]
+        vals = (shard["dil_vals"][lflat[:, None], sel.long()]
                 if "dil_vals" in shard else None)
         return sq, idx, vals, ok
 

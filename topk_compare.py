@@ -4,7 +4,9 @@
 
 Both sources must export the C entry point ``topk_smallest_f32`` of
 ``sparsespatialsampling_torch/csrc/topk_smallest.cu``.  Each is compiled
-with the port's ``nvcc`` flags into the git-ignored ``_build/`` directory.
+with the port's ``nvcc`` flags into the git-ignored ``_build/`` directory
+(a source may include the headers of ``csrc/``, from its own directory or
+from there).
 At each of the main path's selection shapes that both kernels can take
 (``SHAPES``), the script checks both against the plain version and times them
 by ``chip_smoke.cuda_ms`` (CUDA-graph replays over copies of the input that
@@ -23,25 +25,27 @@ import torch
 
 import chip_smoke
 
-# the epoch shape of chip_smoke.py's kernel phase, the grid3d grid
-# selection's largest input, the 2D shape and the full scan's merge width:
-# the main path's shapes whose four staged rows fit in 227 KB of shared
-# memory (the kernel before the streaming redesign needs that), as
-# (rows, width, k, seed)
+# the tie-laden shapes of chip_smoke.py's kernel phase (the epoch shape,
+# the 2D shape, the full scan's merge width, and the edges k = 1 and
+# k = W) and the dilated grid3d rows, as (rows, width, k, seed); the
+# kernel before PR 2's streaming redesign takes only the first four
 SHAPES = ((36864, 864, 26, 0), (65536, 384, 26, 7), (20480, 576, 8, 1),
-          (1024, 1054, 34, 2))
+          (1024, 1054, 34, 2), (4096, 1054, 1, 3), (2048, 200, 200, 4))
 
 
 def build(source: Path):
     """The ``topk_smallest_f32`` entry of ``source``, compiled and loaded."""
     from sparsespatialsampling_torch import _build
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    headers = sorted(_build.SOURCE_DIR.glob("*.cuh"))
+    digest = hashlib.sha1(source.read_bytes() + b"".join(
+        h.read_bytes() for h in headers)).hexdigest()[:12]
     lib = _build.BUILD_DIR / f"libtopk_compare_{digest}.so"
     if not lib.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-                        str(lib), str(source)], check=True,
-                       capture_output=True, text=True)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        f"-I{_build.SOURCE_DIR}", "-o", str(lib),
+                        str(source)], check=True, capture_output=True,
+                       text=True)
     fn = ctypes.CDLL(str(lib)).topk_smallest_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
