@@ -37,6 +37,12 @@ Phases:
   27·32], a shard's unsorted rows [71 040, 864] k=26), timed beside the
   plain version, the parent's unfused chain (``unfused_ms``: the plain
   distances, ``topk_smallest`` and the canonical sort) and the bound;
+  ring rows in the main path's order (each of 256 cells' 1 + 2^d centres
+  consecutive, beside ``grid3d``'s hole; and 2D at k=8 beside the
+  airfoil), timed beside the random order, then with a quarter of them
+  masked (runs cut by left-out rows), a run of 80 rows in one home cell
+  (longer than a block's chunk), and rows clamped to boundary home cells
+  outside the bbox, whose radius-4 rows are mostly the all-pad sentinel;
   then on 3D and 2D lattice clouds (a tie at every k-th place; queries
   on lattice points, some outside the bbox), a pad-heavy layout whose
   rows run out of real candidates (ties among pad slots at equal ``(sq,
@@ -453,6 +459,43 @@ def pad_heavy_layout(d: int, c: int, n_cells: int, seed: int):
     return (torch.from_numpy(pts).cuda(), torch.from_numpy(ids).cuda())
 
 
+def main_order_queries(index, lo, width: float, axis_xy, radii, z_range,
+                       n_parents: int, seed: int) -> torch.Tensor:
+    """Queries of a ring pass in the main path's order, centred f32 on
+    the index's device: ``n_parents`` seeded cells of level 6 or 7 whose
+    centres lie ``radii`` from the hole's axis ``axis_xy`` (``z_range``
+    along it in 3D), each split into its 2^d children, and each child's
+    centre then its 2^d prospective children's centres
+    (``SamplingTree._query_centers``), the rows of a child consecutive
+    and the children of a parent consecutive."""
+    d = len(axis_xy) + (z_range is not None)
+    rng = np.random.default_rng(seed)
+    dirs = lattice(d, 2) * 2.0 - 1.0                     # {-1, +1}^d
+    rows = []
+    for _ in range(n_parents):
+        h = width / 2.0 ** rng.integers(6, 8)
+        ang, rad = rng.uniform(0, 2 * np.pi), rng.uniform(*radii)
+        p = [axis_xy[0] + rad * np.cos(ang), axis_xy[1] + rad * np.sin(ang)]
+        if z_range is not None:
+            p.append(rng.uniform(*z_range))
+        parent = np.floor((np.asarray(p) - lo) / h)
+        for bits in lattice(d, 2):
+            centre = lo + (2.0 * parent + bits + 0.5) * (h / 2.0)
+            rows.append(centre)
+            rows.extend(centre + dirs * (0.25 * h / 2.0))
+    return index._queries_f32(np.asarray(rows) - index._shift)
+
+
+def in_cell_queries(g, cell, n: int, seed: int) -> torch.Tensor:
+    """``n`` seeded queries inside the index grid's cell ``cell`` (lattice
+    coordinates; outside the grid, they clamp to its nearest cell)."""
+    rng = np.random.default_rng(seed)
+    origin, inv_h = g["origin"].cpu().numpy(), g["inv_h"].cpu().numpy()
+    t = np.asarray(cell) + rng.uniform(0.05, 0.95, (n, len(cell)))
+    return torch.from_numpy((origin + t / inv_h).astype(np.float32)).to(
+        g["origin"].device)
+
+
 def phase_grid_select_kernel() -> dict:
     """``grid_select`` against its plain version, bitwise, at every call
     site's shape on layouts ``KNNIndex`` builds from the workloads' clouds
@@ -511,6 +554,43 @@ def phase_grid_select_kernel() -> dict:
     half = torch.from_numpy(rng.uniform(size=1024) < 0.5).cuda()
     case("ring_select_half_masked", "grid_select_blocked", args + (half,),
          True)
+    # ring rows in the main path's order (each cell's 1 + 2^d centres
+    # consecutive, sibling cells after each other): runs of rows share a
+    # home cell, and with it the whole row of flat; timed beside the
+    # random order above
+    lo3 = np.asarray(bounds[0], np.float64)
+    width3 = float(np.max(np.subtract(bounds[1], bounds[0])))
+    mq = main_order_queries(i3, lo3, width3, (0.2, 0.2), (0.05, 0.07),
+                            (0.0, 0.41), 32, seed=12)
+    margs = (mq, g3["cell_pts"], g3["cell_list"], nb_flat(g3, mq, 4), 26)
+    case("ring_select_main_order", "grid_select_blocked", margs, True)
+    # the same rows with a quarter of them masked: runs cut by left-out
+    # rows
+    cut = torch.from_numpy(rng.uniform(size=mq.shape[0]) >= 0.25).cuda()
+    case("ring_select_main_order_runs_cut", "grid_select_blocked",
+         margs + (cut,))
+    # one run longer than a block's chunk: 80 rows in one home cell beside
+    # the hole, then 40 in the next cell along the first axis
+    home = np.floor((mq[0].cpu().numpy() - g3["origin"].cpu().numpy())
+                    * g3["inv_h"].cpu().numpy())
+    lq = torch.cat([in_cell_queries(g3, home, 80, 13),
+                    in_cell_queries(g3, home + [1.0, 0.0, 0.0], 40, 14)])
+    case("ring_select_long_run", "grid_select_blocked",
+         (lq, g3["cell_pts"], g3["cell_list"], nb_flat(g3, lq, 4), 26))
+    # runs at clamped boundary home cells (queries outside the bbox, past
+    # two corners and an edge): their radius-4 rows are mostly the all-pad
+    # sentinel row, and the first run's mask leaves every third row out
+    dims = g3["dims"].cpu().numpy().astype(np.float64)
+    cq = torch.cat([in_cell_queries(g3, dims + 1.0, 40, 15),
+                    in_cell_queries(g3, [-3.0, -3.0, -3.0], 40, 16),
+                    in_cell_queries(g3, [dims[0] // 2, -2.0, dims[2] + 2.0],
+                                    40, 17)])
+    cflat = nb_flat(g3, cq, 4)
+    out["clamped_sentinel_share"] = float(
+        (cflat == g3["cell_list"].shape[0] - 1).double().mean())
+    case("ring_select_clamped", "grid_select_blocked",
+         (cq, g3["cell_pts"], g3["cell_list"], cflat, 26,
+          torch.arange(120, device=cq.device) % 3 > 0))
     q = centred(i3, rng.uniform(bounds[0], bounds[1], (4320, 3)))
     case("blocked_select", "grid_select_blocked",
          (q, g3["cell_pts"], g3["cell_list"], nb_flat(g3, q, 1), 26), True)
@@ -540,6 +620,11 @@ def phase_grid_select_kernel() -> dict:
     case("ring_select_2d", "grid_select_blocked",
          (q[:1024], g2["cell_pts"], g2["cell_list"],
           nb_flat(g2, q[:1024], 4), 8), True)
+    # the 2D ring in the main path's order: cells beside the airfoil
+    mq = main_order_queries(i2, np.array([-0.5, -0.5]), 2.0, (0.5, 0.0),
+                            (0.0, 0.1), None, 48, seed=18)
+    case("ring_select_2d_main_order", "grid_select_blocked",
+         (mq, g2["cell_pts"], g2["cell_list"], nb_flat(g2, mq, 4), 8), True)
     del i2, g2
 
     # lattices: every k-th place a tie; queries on lattice points and on
@@ -642,6 +727,37 @@ def grid_bound(entry: str, a: dict) -> dict:
             "bound_rows_bytes": n * d * 4 + fixed, "scored_rows": active}
 
 
+def run_stats(flat: torch.Tensor, mask=None) -> dict:
+    """How the rows of a blocked call share neighbourhoods.  A row's
+    neighbourhood ``flat[q]`` is a function of its home cell, the centre
+    slab ``flat[q, (R - 1) / 2]``.  Returns the rows, the unmasked rows,
+    the distinct home cells among them, the mean length of runs of equal
+    home cell in the unmasked rows' order (a masked row is skipped, it
+    does not end a run), and for chunks of 4, 8 and 16 consecutive rows
+    the unmasked rows per distinct home cell in a chunk (the rows of one
+    block of the kernel that read the same slabs)."""
+    rows, r = flat.shape
+    centre = flat[:, (r - 1) // 2]
+    keep = (torch.ones(rows, dtype=torch.bool, device=flat.device)
+            if mask is None else mask)
+    live = centre[keep]
+    n = int(live.numel())
+    n_runs = int((live[1:] != live[:-1]).sum()) + 1 if n else 0
+    out = {"rows": rows, "unmasked_rows": n,
+           "distinct_home_cells": int(torch.unique(live).numel()),
+           "mean_run": n / n_runs if n_runs else 0.0}
+    for g in (4, 8, 16):
+        pad = -(-rows // g) * g - rows
+        ids = torch.cat([torch.where(keep, centre, -1),
+                         centre.new_full((pad,), -1)]).view(-1, g)
+        srt = torch.sort(ids, dim=1).values
+        distinct = ((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum()
+        distinct = int(distinct + (srt[:, 0] >= 0).sum())
+        out[f"rows_per_home_cell_in_chunks_of_{g}"] = (
+            n / distinct if distinct else 0.0)
+    return out
+
+
 def unfused(entry: str, a: dict):
     """The call as the parent commit ran it (the ``unfused_ms`` route):
     the plain chain's gather and f64 distance arithmetic as eager
@@ -701,8 +817,10 @@ def check_grid(entry: str, args: tuple, kwargs: dict = None,
            "bitwise_equal_plain": True, "max_abs_err": err}
     if entry == "grid_select_dilated":
         res["sorted_rows"] = a["sorted_rows"]
-    elif a["mask"] is not None:
-        res["masked_out_rows"] = int((~a["mask"]).sum())
+    else:
+        if a["mask"] is not None:
+            res["masked_out_rows"] = int((~a["mask"]).sum())
+        res["run_stats"] = run_stats(a["flat"], a["mask"])
     if timed:
         pts = "dil_pts" if entry == "grid_select_dilated" else "cell_pts"
 
@@ -1625,12 +1743,45 @@ def weights_rerun(s3) -> dict:
             "fallback_rows": int(bad.size)}
 
 
-def phase_grid3d(tmp: str) -> tuple:
+def grid3d_case():
+    """The ``grid3d`` workload: ``(points, metric, geometries, grid
+    arguments, bounds)``."""
     from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
     xyz, metric, bounds = cylinder_wake_3d()
     geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
                   SphereGeometry("hole", False, [0.2, 0.2, 0.2], 0.05,
                                  refine=True, min_refinement_level=7)]
+    return (xyz, metric, geometries,
+            {"uniform_levels": 5, "n_cells_max": 150_000}, bounds)
+
+
+def cylinder3d_case():
+    """Bench workload 2's grid: ``(points, metric, geometries, grid
+    arguments)``."""
+    from sparsespatialsampling_torch import CubeGeometry, CylinderGeometry3D
+    xyz, metric, bounds = cylinder_wake_3d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  CylinderGeometry3D("cylinder", False,
+                                     [[0.2, 0.2, 0.0], [0.2, 0.2, 0.41]],
+                                     0.05, refine=True,
+                                     min_refinement_level=7)]
+    return xyz, metric, geometries, {"uniform_levels": 5,
+                                     "n_cells_max": 150_000}
+
+
+def grid2d_metric_case():
+    """The ``grid2d_metric`` workload: ``(points, metric, geometries, grid
+    arguments)``."""
+    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
+    xy, metric, bounds = channel_wake_2d()
+    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
+                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
+                                 refine=True, min_refinement_level=9)]
+    return xy, metric, geometries, {"uniform_levels": 5, "min_metric": 0.75}
+
+
+def phase_grid3d(tmp: str) -> tuple:
+    xyz, metric, geometries, kw, bounds = grid3d_case()
     n_snap = 10
     phases = np.linspace(0, 2 * np.pi, n_snap, endpoint=False)
     snaps = (metric[:, None]
@@ -1638,7 +1789,7 @@ def phase_grid3d(tmp: str) -> tuple:
     times = [f"{t:.4f}" for t in np.arange(n_snap) * 5e-4]
     s3, exp, field, t, counts, tap, tree = main_path_run(
         "grid3d", tmp, "c3d", xyz, metric, geometries, export=(snaps, times),
-        uniform_levels=5, n_cells_max=150_000)
+        **kw)
     out = {"phase": "grid3d", "n_points": int(xyz.shape[0]),
            **grid_summary(s3, t), **export_summary("grid3d", exp, t),
            "launches": counts,
@@ -1652,15 +1803,11 @@ def phase_grid3d(tmp: str) -> tuple:
 
 
 def phase_grid2d_metric(tmp: str) -> tuple:
-    from sparsespatialsampling_torch import CubeGeometry, SphereGeometry
-    xy, metric, bounds = channel_wake_2d()
-    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
-                  SphereGeometry("cylinder", False, [0.2, 0.2], 0.05,
-                                 refine=True, min_refinement_level=9)]
+    xy, metric, geometries, kw = grid2d_metric_case()
     # no export here, and the ring may leave the full scan nothing to do
     s3, _, _, t, counts, tap, _ = main_path_run(
         "grid2d_metric", tmp, "c2d", xy, metric, geometries,
-        sites=("grid_select", RING), uniform_levels=5, min_metric=0.75)
+        sites=("grid_select", RING), **kw)
     out = {"phase": "grid2d_metric", "n_points": int(xy.shape[0]),
            **grid_summary(s3, t), "launches": counts}
     check_expected("grid2d_metric", out)
@@ -1953,17 +2100,10 @@ def phase_cylinder3d(tmp: str) -> tuple:
     """Bench workload 2 (``bench.py:304-338``) end to end: the ``grid3d``
     cloud around the cylinder it was cut for, 50 snapshots interpolated,
     then the rank-20 weighted SVD and a DMD."""
-    from sparsespatialsampling_torch import CubeGeometry, CylinderGeometry3D
-    xyz, metric, bounds = cylinder_wake_3d()
-    geometries = [CubeGeometry("domain", True, bounds[0], bounds[1]),
-                  CylinderGeometry3D("cylinder", False,
-                                     [[0.2, 0.2, 0.0], [0.2, 0.2, 0.41]],
-                                     0.05, refine=True,
-                                     min_refinement_level=7)]
+    xyz, metric, geometries, kw = cylinder3d_case()
     s3, exp, field, t, counts, tap, _ = main_path_run(
         "cylinder3d", tmp, "cyl", xyz, metric, geometries,
-        export=bench_snapshots(metric), sites=("grid_select", RING),
-        uniform_levels=5, n_cells_max=150_000)
+        export=bench_snapshots(metric), sites=("grid_select", RING), **kw)
     out = {"phase": "cylinder3d", "n_points": int(xyz.shape[0]),
            **grid_summary(s3, t), **export_summary("cylinder3d", exp, t),
            "launches": counts, "launches_per_site": dict(tap.launches)}
@@ -3616,7 +3756,8 @@ def main() -> int:
                    for case, c in counts_sharded.items()}}
 
     def site_lines(kernel, keys):
-        return {site: {key: c[key] for key in keys + ("launches",)}
+        return {site: {key: c[key] for key in keys + ("launches", "run_stats")
+                       if key in c}
                 for site, c in sites.items() if KERNEL_OF[site] == kernel}
     topk_checks = kernel["cases"] + [c for c in at_sites if "entry" not in c]
     grid_checks = (list(grid_kernel["cases"].values())

@@ -38,7 +38,12 @@
 // k (sq, idx, sel) triples are written; the f64 additions (d - 1 of them a
 // candidate, with their conversions) are the operations.  The ring pass of
 // the 3D workloads, [1024, 729*32] candidates, reads at most 287 MB, 0.086
-// ms at 3.35 TB/s; the epoch's dilated [65536, 384] 302 MB, 0.090 ms.
+// ms at 3.35 TB/s; the epoch's dilated [65536, 384] 302 MB, 0.090 ms.  The
+// bytes mostly come from L2 (a call's distinct slabs are a few MB).  What
+// held the first blocked design back (8 warps a row, slabs in index order)
+// was its warp queue: without it the ring pass took 0.058 of 0.107 ms on an
+// H100, with or without the coordinate loads, and without the f64 chain
+// 0.014 ms less (grid_select_compare.py --ablate; PERF.md).
 //
 // What the design does about it:
 //   * Each lane takes groups of four consecutive candidates (4*d floats,
@@ -47,13 +52,27 @@
 //     four keys to the warp queue of warp_select.cuh (csrc/topk_smallest.cu
 //     uses the same queue).  A group whose four distances all lie above the
 //     queue's threshold costs four compares and one vote.
-//   * Dilated rows (<= 2048 candidates) and radius-1 blocked rows take one
-//     warp a row, four rows a block.  Wide rows (the radius-4 ring: 23,328
-//     candidates in 3D) take one block of up to 8 warps a row, each warp
-//     over a strided range of groups; the warps' queues are merged pairwise
-//     in shared memory.  A blocked group never straddles two slabs (C is a
-//     power of two, at least 4): its slab's cell id is one read of `flat`,
-//     which the lanes of a slab share.
+//   * Dilated rows (<= 2048 candidates) take one warp a row, four rows a
+//     block; wider rows one block of up to 8 warps a row, each warp over a
+//     strided range of groups, the warps' queues merged pairwise in shared
+//     memory.
+//   * The blocked entry scans a row's slabs nearest first (kSlabOrder: the
+//     offsets sorted by length), so the queue's threshold falls within the
+//     first slabs and later groups are rarely offered; the slots keep their
+//     neighbour-offset numbering, and the kk smallest (sq, slot) keys are
+//     one set whatever the order.  A group whose f32 FMA distances all lie
+//     above the threshold by more than their rounding (skip_above) skips
+//     the f64 chain.  A block takes a chunk of 1-8 consecutive rows, 8-1
+//     warps a row, and first reads each row's
+//     cell ids, in scan order, into shared memory; rows of the chunk then
+//     read their slabs in the same order at about the same pace, so a run
+//     of rows with one neighbourhood finds in L1 what its first row brought
+//     (on the main path such runs are short: 1.03 rows on grid3d's ring).
+//     Staging a run's slabs in shared memory with cp.async was built and
+//     measured slower: each tile's copy latency held the run's warps at a
+//     barrier (PERF.md).
+//   * A blocked group never straddles two slabs (C is a power of two, at
+//     least 4): its slab's cell id is one shared read.
 //   * The re-sort by (sq, idx, slot) is a bitonic network over the kk keys
 //     in the warp's registers and shuffles.
 //
@@ -124,27 +143,6 @@ struct DilatedRow {
   }
   __device__ __forceinline__ int candidate(unsigned slot) const {
     return __ldg(cand + slot);
-  }
-};
-
-// One query's R blocked slabs: slot s*C + m is member m of cell flat[s].
-template <int D>
-struct BlockedRow {
-  const float* pts;
-  const int* cand;
-  const long long* flat;
-  int log2c;
-
-  __device__ BlockedRow(const Args& a, long long row)
-      : pts(a.pts), cand(a.cand), flat(a.flat + row * a.r), log2c(a.log2c) {}
-  __device__ __forceinline__ const float* group(int i) const {
-    const int shift = log2c - 2;  // groups a slab: C / 4
-    const long long cell = __ldg(flat + (i >> shift));
-    return pts + ((cell << log2c) + 4 * (i & ((1 << shift) - 1))) * D;
-  }
-  __device__ __forceinline__ int candidate(unsigned slot) const {
-    const long long cell = __ldg(flat + (slot >> log2c));
-    return __ldg(cand + (cell << log2c) + (slot & ((1u << log2c) - 1u)));
   }
 };
 
@@ -250,9 +248,9 @@ grid_select_kernel(const Args a) {
   const int rows_per_block = blockDim.x / (kWarp * a.wpr);
   const int wr = warp % a.wpr;
   const long long row = (long long)blockIdx.x * rows_per_block + warp / a.wpr;
-  // only narrow blocks (wpr == 1) hold rows past the end, and a row the
-  // mask leaves out is the whole block where it spans it: neither reaches
-  // a block barrier
+  // only narrow blocks (wpr == 1) hold rows past the end, and neither
+  // they nor a row a mask leaves out (the dilated entry passes none)
+  // reaches a block barrier
   if (row >= a.q) return;
   float* out_sq = a.sq + row * a.k;
   long long* out_idx = a.idx + row * a.k;
@@ -349,6 +347,339 @@ cudaError_t launch_d(const Args& a, int d, cudaStream_t stream) {
 
 bool aligned16(const void* p) { return ((size_t)p & 15u) == 0; }
 
+// ---- The blocked entry ---------------------------------------------------
+//
+// A block of kBlockWarps warps takes `chunk` consecutive rows, `wpr` warps
+// a row; the warps of a row the mask leaves out write its filler and
+// return (a ring pass's left-out rows are its last).  The block first
+// reads each row's cell ids, in the scan order, into shared memory; then
+// each warp scores its groups of its row straight from L2 (kUnroll groups
+// of four candidates in flight a lane), in step with the chunk's other
+// rows, so that rows of a run (consecutive rows with one neighbourhood)
+// read each slab at about the same time and all but the first find it in
+// L1.  After the block's two barriers a row's warps synchronise only with
+// each other, on barrier 1 + the row's place in the chunk.
+
+constexpr int kBlockWarps = 8;
+// the scan order of the slabs of the radius 1 to kMaxOrderRadius
+// neighbourhoods, d = 2 then d = 3, each radius after the last
+constexpr int kMaxOrderRadius = 4;
+constexpr int kOrderEntries = 9 + 25 + 49 + 81 + 27 + 125 + 343 + 729;
+__device__ unsigned short kSlabOrder[kOrderEntries];
+// per device, filled by grid_select_setup: multiprocessors and the shared
+// memory a block may opt in to
+constexpr int kMaxDevices = 64;
+int g_sm_count[kMaxDevices];
+int g_smem_optin[kMaxDevices];
+
+struct BlockedArgs {
+  const float* queries;        // [q, d]
+  const float* pts;            // [rows, C, d]
+  const int* cand;             // [rows, C]
+  const long long* flat;       // [q, r]
+  const unsigned char* mask;   // [q] bool, or null: every row
+  float* sq;                   // [q, k]
+  long long* idx;              // [q, k]
+  int* sel;                    // [q, k]
+  int q, r, log2c, k, kk;
+  int order;                   // the slab order's offset in kSlabOrder, or -1
+  int chunk, wpr;              // rows a block, warps a row
+};
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// sq of candidate t of a group in f32 fused multiply-adds.  Both this and
+// sq_distance round a sum of the same non-negative terms three times (the
+// f64 sum's rounding adds 2^-53), so sq_distance is at least this times
+// (1 - 6.01 * 2^-24), less 3 * 2^-150 where the sums underflow.
+template <int D>
+__device__ __forceinline__ float approx_sq(const float (&qv)[D],
+                                           const float4 (&v)[D], int t) {
+  const float d0 = __fsub_rn(qv[0], coord<D>(v, t * D));
+  float out = __fmul_rn(d0, d0);
+#pragma unroll
+  for (int a = 1; a < D; ++a) {
+    const float da = __fsub_rn(qv[a], coord<D>(v, t * D + a));
+    out = __fmaf_rn(da, da, out);
+  }
+  return out;
+}
+
+// An approx_sq above this puts sq_distance above th: th(1 + 2^-20) +
+// 2^-126 by the bound of approx_sq; +inf (skip nothing) while th is +inf,
+// NaN or above 1e38, near the end of the f32 range, where an approx_sq
+// that overflows would not bound sq_distance.
+__device__ __forceinline__ float skip_above(float th) {
+  return th < 1e38f ? __fmaf_rn(th, 1.0f + 0x1p-20f, 0x1p-126f)
+                    : __uint_as_float(0x7f800000u);
+}
+
+// This warp's groups of one row (warp wr of wpr takes groups wr*32 + lane,
+// (wr + wpr)*32 + lane, ...).  Group i holds members 4(i & (C/4 - 1)) ..
+// + 3 of the row's slab at scan position i >> (log2c - 2), whose cell id is
+// cells[that] and whose slab kSlabOrder[order + that] (slot s*C + m).  A
+// group whose f32 distances all lie above skip_above costs no f64 work; the
+// others are scored as in the dilated rows and offered to the queue.
+template <int Q, int D>
+__device__ __forceinline__ void select_blocked(WarpSelect<Q>& ws,
+                                               const unsigned* cells,
+                                               const BlockedArgs& a,
+                                               const float (&qv)[D], int wr,
+                                               int lane) {
+  const int shift = a.log2c - 2;
+  const int in_slab = (1 << shift) - 1;
+  const int groups = (a.r << a.log2c) / 4;
+  const int stride = kWarp * a.wpr;
+  for (int s = wr * kWarp; s < groups; s += kUnroll * stride) {
+    float4 v[kUnroll][D];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = s + u * stride + lane;
+      if (i < groups) {
+        const size_t cell = cells[i >> shift];
+        const float4* p = reinterpret_cast<const float4*>(
+            a.pts + ((cell << a.log2c) + 4 * (i & in_slab)) * D);
+#pragma unroll
+        for (int c = 0; c < D; ++c) v[u][c] = __ldg(p + c);
+      } else {
+#pragma unroll
+        for (int c = 0; c < D; ++c) v[u][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (s + u * stride >= groups) break;  // the same for the whole warp
+      const int i = s + u * stride + lane;
+      const bool ok = i < groups;
+      const float lim = skip_above(ws.thresh_value);
+      bool maybe = false;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) maybe |= !(approx_sq<D>(qv, v[u], t) > lim);
+      if (!__any_sync(kFull, ok && maybe)) continue;
+      float dist[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) dist[t] = sq_distance<D>(qv, v[u], t);
+      const float th = ws.thresh_value;
+      const bool near = ok && (dist[0] <= th || dist[1] <= th ||
+                               dist[2] <= th || dist[3] <= th);
+      if (__any_sync(kFull, near)) {
+        const int j = ok ? i >> shift : 0;
+        const int slab = a.order < 0 ? j : __ldg(kSlabOrder + a.order + j);
+        const unsigned c0 =
+            ((unsigned)slab << a.log2c) + 4u * (unsigned)(i & in_slab);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) ws.offer(make_key(dist[t], c0 + t), ok);
+        ws.drain();
+      }
+    }
+  }
+  ws.flush();
+}
+
+template <int Q, int D>
+__global__ void __launch_bounds__(kBlockWarps * kWarp)
+grid_select_blocked_kernel(const BlockedArgs a) {
+  constexpr int kSlots = slots_per_warp(Q);
+  extern __shared__ u64 smem[];
+  // queues [warps][kSlots] | rows [warps] | cells [chunk][r]
+  u64* queues = smem;
+  long long* rows = (long long*)(queues + kBlockWarps * kSlots);
+  unsigned* cells = (unsigned*)(rows + kBlockWarps);
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp;
+  const int lane = tid % kWarp;
+  const int g = warp / a.wpr;  // this warp's row in the chunk
+  const int p = warp % a.wpr;  // and its place among the row's warps
+  const long long first = (long long)blockIdx.x * a.chunk;
+
+  // the chunk's rows; -1 past the end and where the mask leaves a row
+  // out, whose filler the row's first warp writes
+  if (tid < a.chunk) {
+    const long long rw = first + tid;
+    rows[tid] = rw < a.q && (a.mask == nullptr || a.mask[rw]) ? rw : -1;
+  }
+  const long long own = first + g;
+  if (a.mask != nullptr && p == 0 && own < a.q && !a.mask[own]) {
+    for (int j = lane; j < a.k; j += kWarp) {
+      a.sq[own * a.k + j] = __uint_as_float(0x7f800000u);
+      a.idx[own * a.k + j] = 0;
+      a.sel[own * a.k + j] = 0;
+    }
+  }
+  __syncthreads();
+  // each row's cell ids in the scan order, read once by the whole block
+  for (int e = tid; e < a.chunk * a.r; e += blockDim.x) {
+    const int c = e / a.r, j = e - c * a.r;
+    if (rows[c] >= 0)
+      cells[e] = (unsigned)__ldg(
+          a.flat + rows[c] * a.r +
+          (a.order < 0 ? j : __ldg(kSlabOrder + a.order + j)));
+  }
+  __syncthreads();  // the last barrier of the whole block
+  const long long row = rows[g];
+  if (row < 0) return;
+
+  float qv[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) qv[d] = __ldg(a.queries + row * D + d);
+  u64* mine_q = queues + (size_t)warp * kSlots;
+  WarpSelect<Q> ws;
+  ws.init(mine_q, lane, a.kk);
+  select_blocked<Q, D>(ws, cells + g * a.r, a, qv, p, lane);
+  // the row's warps merge their queues pairwise (merge_row_queues on the
+  // row's own barrier)
+  if (a.wpr > 1) {
+    const int bar = 1 + g, threads = a.wpr * kWarp;
+#pragma unroll
+    for (int r = 0; r < Q; ++r) mine_q[r * kWarp + lane] = ws.q[r];
+    named_sync(bar, threads);
+    for (int l = 1; l < a.wpr; l <<= 1) {
+      if (p % (2 * l) == 0) {
+        const u64* other = mine_q + (size_t)l * kSlots;
+#pragma unroll
+        for (int r = 0; r < Q; ++r)
+          ws.q[r] = kmin(ws.q[r], other[kWarp * Q - 1 - (r * kWarp + lane)]);
+        bitonic_merge<Q>(ws.q, lane);
+#pragma unroll
+        for (int r = 0; r < Q; ++r) mine_q[r * kWarp + lane] = ws.q[r];
+      }
+      named_sync(bar, threads);
+    }
+  }
+  if (p != 0) return;
+
+  // the kk selected by (sq, slot), a +inf distance as slot 0; (sq, idx)
+  // keys, the slots beside them, the queue's places past kk last
+  const long long* nb = a.flat + row * a.r;
+  float* out_sq = a.sq + row * a.k;
+  long long* out_idx = a.idx + row * a.k;
+  int* out_sel = a.sel + row * a.k;
+  u64 key[Q];
+  unsigned slot[Q];
+#pragma unroll
+  for (int r = 0; r < Q; ++r) {
+    unsigned ord = (unsigned)(ws.q[r] >> 32);
+    unsigned s = (unsigned)ws.q[r];
+    if (ord >= kInfOrd) {
+      ord = kInfOrd;
+      s = 0;
+    }
+    if (r * kWarp + lane < a.kk) {
+      const long long cell = __ldg(nb + (s >> a.log2c));
+      key[r] = ((u64)ord << 32) |
+               (unsigned)__ldg(a.cand + (cell << a.log2c) +
+                               (s & ((1u << a.log2c) - 1u)));
+      slot[r] = s;
+    } else {
+      key[r] = kEmpty;
+      slot[r] = ~0u;
+    }
+  }
+  sort_pairs<Q>(key, slot, lane);
+#pragma unroll
+  for (int r = 0; r < Q; ++r) {
+    const int j = r * kWarp + lane;
+    if (j < a.k) {
+      out_sq[j] = key_value(key[r]);
+      out_sel[j] = (int)slot[r];
+      out_idx[j] = (long long)(unsigned)key[r];
+    }
+  }
+}
+
+// rows a block: the most (8, 4, 2 or 1) that still gives the card
+// kMinBlocksPerSm blocks a multiprocessor (1.5 chooses 4 at a ring pass's
+// 1,024 rows, the fastest of the four there, and 1 at the first pass's 256)
+constexpr double kMinBlocksPerSm = 1.5;
+inline int chunk_rows(long long q, int sms) {
+  int chunk = kBlockWarps;
+  while (chunk > 1 && (q + chunk - 1) / chunk < kMinBlocksPerSm * sms)
+    chunk /= 2;
+  return chunk;
+}
+
+template <int Q, int D>
+cudaError_t launch_blocked(BlockedArgs a, cudaStream_t stream) {
+  constexpr int kSlots = slots_per_warp(Q);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices || g_sm_count[dev] == 0)
+    return cudaErrorInitializationError;  // grid_select_setup not run here
+  a.chunk = chunk_rows(a.q, g_sm_count[dev]);
+  a.wpr = kBlockWarps / a.chunk;
+  const size_t smem = kBlockWarps * (kSlots * sizeof(u64) + sizeof(long long)) +
+                      (size_t)a.chunk * a.r * sizeof(unsigned);
+  if (smem > (size_t)g_smem_optin[dev]) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((a.q + a.chunk - 1) / a.chunk);
+  grid_select_blocked_kernel<Q, D>
+      <<<blocks, kBlockWarps * kWarp, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_blocked_q(const BlockedArgs& a, cudaStream_t stream) {
+  if (a.kk <= 32) return launch_blocked<1, D>(a, stream);
+  if (a.kk <= 64) return launch_blocked<2, D>(a, stream);
+  if (a.kk <= 128) return launch_blocked<4, D>(a, stream);
+  return launch_blocked<8, D>(a, stream);
+}
+
+int ipow(int b, int e) {
+  int out = 1;
+  while (e-- > 0) out *= b;
+  return out;
+}
+
+// the offset of the (2 radius + 1)^d neighbourhood's order in kSlabOrder,
+// or -1 if r slabs are no such neighbourhood of radius 1 to 4
+int order_offset(int d, int r) {
+  int offset = 0;
+  for (int dd = 2; dd <= 3; ++dd)
+    for (int radius = 1; radius <= kMaxOrderRadius; ++radius) {
+      const int n = ipow(2 * radius + 1, dd);
+      if (dd == d && n == r) return offset;
+      offset += n;
+    }
+  return -1;
+}
+
+// The scan orders: the slabs of each neighbourhood (in _neighbor_offsets
+// order, the last axis fastest) sorted by the squared length of their
+// offset from the home cell, stably.  Any order gives the same selection
+// (the kk smallest (sq, slot) keys are one set); the nearest first lowers
+// the queue's threshold early, so that fewer candidates are offered.
+void fill_orders(unsigned short* out) {
+  for (int dd = 2; dd <= 3; ++dd)
+    for (int radius = 1; radius <= kMaxOrderRadius; ++radius) {
+      const int side = 2 * radius + 1, n = ipow(side, dd);
+      for (int key = 0; key <= dd * radius * radius; ++key)
+        for (int i = 0; i < n; ++i) {
+          int len = 0;
+          for (int a = 0, rest = i; a < dd; ++a, rest /= side) {
+            const int o = rest % side - radius;
+            len += o * o;
+          }
+          if (len == key) *out++ = (unsigned short)i;
+        }
+    }
+}
+
+template <int D>
+cudaError_t allow_smem(int bytes) {
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t e = cudaSuccess;
+  const void* kernels[] = {(const void*)grid_select_blocked_kernel<1, D>,
+                           (const void*)grid_select_blocked_kernel<2, D>,
+                           (const void*)grid_select_blocked_kernel<4, D>,
+                           (const void*)grid_select_blocked_kernel<8, D>};
+  for (const void* k : kernels)
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(k, attr, bytes);
+  return e;
+}
+
 }  // namespace
 
 // queries [q, d] f32, dil_pts [rows, keep*d] f32, dil_cand [rows, keep]
@@ -380,7 +711,8 @@ extern "C" int grid_select_dilated_f32(const void* queries,
 // all contiguous on the current device.  The kk smallest by (sq, slot)
 // re-sorted by (sq, idx, slot); rows the mask leaves out get (+inf, 0, 0).
 // d in {2, 3}, c a power of two >= 4, 1 <= k <= kk <= min(r*c, 256).
-// Launches on `stream` and returns cudaGetLastError().
+// Launches on `stream` and returns cudaGetLastError(); refused until
+// grid_select_setup has run on the current device.
 extern "C" int grid_select_blocked_f32(const void* queries,
                                        const void* cell_pts,
                                        const void* cell_list,
@@ -394,9 +726,36 @@ extern "C" int grid_select_blocked_f32(const void* queries,
       (long long)r * c > (1 << 30) || k <= 0 || kk < k || kk > r * c ||
       kk > kMaxK || !aligned16(cell_pts))
     return (int)cudaErrorInvalidValue;
-  Args a{(const float*)queries, (const float*)cell_pts,
-         (const int*)cell_list, (const long long*)flat,
-         (const unsigned char*)mask, (float*)sq, (long long*)idx, (int*)sel,
-         q, r * c, r, log2c, k, kk, 1, true};
-  return (int)launch_d<BlockedRow>(a, d, (cudaStream_t)stream);
+  BlockedArgs a{(const float*)queries, (const float*)cell_pts,
+                (const int*)cell_list, (const long long*)flat,
+                (const unsigned char*)mask, (float*)sq, (long long*)idx,
+                (int*)sel, q, r, log2c, k, kk, order_offset(d, r), 1, 1};
+  return (int)(d == 2 ? launch_blocked_q<2>(a, (cudaStream_t)stream)
+                      : launch_blocked_q<3>(a, (cudaStream_t)stream));
+}
+
+// Once a device, before the blocked entry's first launch there and never
+// during a graph capture: uploads the slab scan orders, lets the blocked
+// kernels take the shared memory a block may opt in to, and records the
+// device's multiprocessors.  Returns a CUDA error code, 0 on success.
+extern "C" int grid_select_setup() {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= kMaxDevices) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = allow_smem<2>(optin);
+  if (e == cudaSuccess) e = allow_smem<3>(optin);
+  if (e == cudaSuccess) {
+    unsigned short orders[kOrderEntries];
+    fill_orders(orders);
+    e = cudaMemcpyToSymbol(kSlabOrder, orders, sizeof(orders));
+  }
+  if (e != cudaSuccess) return (int)e;
+  g_sm_count[dev] = sms;
+  g_smem_optin[dev] = optin;
+  return 0;
 }

@@ -128,6 +128,8 @@ def grid_select_blocked_plain(queries, cell_pts, cell_list, flat, k: int,
 
 
 _entries = {}
+# devices on which the library's ``grid_select_setup`` has run
+_set_up = set()
 
 
 def _kernel_entry(name: str, n_pointers: int, n_ints: int):
@@ -144,20 +146,51 @@ def _kernel_entry(name: str, n_pointers: int, n_ints: int):
     return fn
 
 
+def _setup(device) -> None:
+    """``grid_select_setup`` of the library on ``device``, once: the blocked
+    kernel's slab scan orders, shared-memory limit and the device's
+    multiprocessor count, which its launches there need.  It must not run
+    inside a CUDA graph capture, and it never does: a window's graph is
+    captured after an eager run of the same body."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index in _set_up:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"grid_select: the kernel is not set up on "
+                           f"cuda:{index}; run one call outside a CUDA graph "
+                           f"capture first")
+    from .. import _build
+    fn = _build.load(_KERNEL).grid_select_setup
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    with torch.cuda.device(index):
+        rc = fn()
+    if rc != 0:
+        raise RuntimeError(f"grid_select_setup failed on cuda:{index}: CUDA "
+                           f"error {rc}")
+    _set_up.add(index)
+
+
 def _outputs(q: int, k: int, device):
     return (torch.empty((q, k), dtype=torch.float32, device=device),
             torch.empty((q, k), dtype=torch.int64, device=device),
             torch.empty((q, k), dtype=torch.int32, device=device))
 
 
-def _launch(name: str, pointers, ints, q: int, k: int, device, what: str):
+def _launch(name: str, pointers, ints, q: int, k: int, device, what: str,
+            setup: bool = False):
     """``(sq, idx, sel)`` of one launch of the entry ``name`` (built first
-    if needed) on ``pointers`` and ``ints``; raises if it is refused."""
+    if needed, and with ``setup`` the library set up on ``device``, which
+    the blocked entry needs) on ``pointers`` and ``ints``; raises if it is
+    refused."""
     global launches
     fn = _kernel_entry(name, len(pointers) + 3, len(ints))
     out = _outputs(q, k, device)
     if q == 0:
         return out
+    if setup:
+        _setup(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*pointers, *(t.data_ptr() for t in out), *ints, stream)
@@ -285,4 +318,5 @@ def grid_select_blocked(queries, cell_pts, cell_list, flat, k: int,
                                            flat)]
                    + [None if mask is None else mask.data_ptr()],
                    [q, d, r, c, k, kk], q, k, queries.device,
-                   f"queries [{q}, {d}], {r} slabs of {c}, k={k}, kk={kk}")
+                   f"queries [{q}, {d}], {r} slabs of {c}, k={k}, kk={kk}",
+                   setup=True)

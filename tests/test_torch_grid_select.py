@@ -18,8 +18,12 @@ CPU XLA):
   4, where ``k + 8`` is above the row width.
 
 The mask leaves rows out with the filler ``(+inf, 0, 0)``; the CPU wrapper
-counts no launch; bad input raises.  The CUDA kernel is held against the
-plain version on the card (``cuda`` marker; skips here).
+counts no launch; bad input raises.  The blocked kernel shares a staged
+slab between consecutive rows with equal neighbourhoods: rows whose centre
+slabs (home cells) are equal have equal rows of ``_grid_neighborhood``, at
+radius 1 and 4, for anchors inside the grid, on cell faces and outside the
+bbox, and the port's cell ids are the JAX package's.  The CUDA kernel is
+held against the plain version on the card (``cuda`` marker; skips here).
 """
 from functools import partial
 from pathlib import Path
@@ -163,6 +167,67 @@ def test_blocked_radius4_matches_ring_composition(layout):
     np.testing.assert_array_equal(tidx.numpy(), jidx)
     real = jidx != pad
     np.testing.assert_array_equal(tsel.numpy()[real], jsel[real])
+
+
+def _anchors(d, where, rng):
+    """Seeded anchors of a small grid (origin and cell size multiples of
+    1/8, so lattice coordinates are exact in f32), several a home cell:
+    inside the cells, on cell faces (bbox faces included), or outside the
+    bbox.  Returns ``(anchors [n, d] f32, origin, inv_h, dims)``."""
+    dims = np.array([6, 5, 4][:d])
+    origin = np.array([0.125, -0.375, 0.25][:d], np.float32)
+    inv_h = np.float32(4.0)
+    cells = rng.integers(0, dims, (60, d))
+    if where == "inside":
+        t = np.repeat(cells, 5, 0) + rng.uniform(0.05, 0.95, (300, d))
+    elif where == "faces":
+        t = np.repeat(cells, 5, 0) + rng.uniform(0.05, 0.95, (300, d))
+        on = rng.uniform(size=(300, d)) < 0.5
+        t = np.where(on, rng.integers(0, dims + 1, (300, d)), t)
+    else:
+        t = rng.uniform(-3.0, dims + 3.0, (300, d))
+        axis = rng.integers(0, d, 300)
+        t[np.arange(300), axis] = np.where(
+            rng.uniform(size=300) < 0.5, rng.uniform(-3.0, -0.01, 300),
+            dims[axis] + rng.uniform(0.01, 3.0, 300))
+        t = np.repeat(t[::5], 5, 0)
+    return (origin + t / inv_h).astype(np.float32), origin, inv_h, dims
+
+
+@pytest.mark.parametrize("where", ["inside", "faces", "outside"])
+@pytest.mark.parametrize("radius", [1, 4])
+@pytest.mark.parametrize("d", [2, 3])
+def test_equal_home_cells_give_equal_neighbourhoods(d, radius, where):
+    """What the blocked kernel's sharing rests on: a row of ``flat`` is a
+    function of its centre slab ``flat[q, (R - 1) / 2]``, the anchor's
+    clamped home cell, never the sentinel; and the port's
+    ``_grid_neighborhood`` gives the JAX package's cell ids."""
+    a, origin, inv_h, dims = _anchors(d, where, np.random.default_rng(
+        10 * d + radius))
+    n_total = int(np.prod(dims)) + 1
+    flat, _ = tknn._grid_neighborhood(
+        _t(a), n_total, _t(origin), torch.tensor(inv_h), _t(dims), radius)
+    jflat, _ = jknn._grid_neighborhood(
+        jnp.asarray(a), n_total, jnp.asarray(origin), jnp.asarray(inv_h),
+        jnp.asarray(dims), radius=radius)
+    flat = flat.numpy()
+    np.testing.assert_array_equal(flat, np.asarray(jflat).astype(np.int64))
+    r = (2 * radius + 1) ** d
+    assert flat.shape == (a.shape[0], r)
+    centre = flat[:, (r - 1) // 2]
+    home = np.clip(np.floor((a - origin) * inv_h).astype(np.int64), 0,
+                   dims - 1)
+    np.testing.assert_array_equal(
+        centre, np.ravel_multi_index(tuple(home.T), tuple(dims)))
+    assert (centre != n_total - 1).all()
+    # several rows a home cell, and each such row equal to its first
+    assert np.unique(centre).size < centre.size / 2
+    first = {}
+    for row, c in enumerate(centre):
+        np.testing.assert_array_equal(flat[row], flat[first.setdefault(c,
+                                                                       row)])
+    if radius == 4 or where == "outside":
+        assert (flat == n_total - 1).any()
 
 
 def _pad_heavy(d, c, seed):
@@ -351,15 +416,37 @@ def test_build_covers_the_headers(monkeypatch):
     assert _build._library_path(src) != name
 
 
+def _main_order(index, n_cells, rng):
+    """Ring rows in the main path's order: each of ``n_cells`` seeded cells
+    (level 6 or 7 of the domain's 2.2 width) beside the cloud's hole, its
+    centre then its 8 prospective children's centres, consecutive."""
+    dirs = np.stack(np.meshgrid(*([[-1.0, 1.0]] * 3), indexing="ij"),
+                    -1).reshape(-1, 3)
+    rows = []
+    for _ in range(n_cells):
+        h = 2.2 / 2.0 ** rng.integers(6, 8)
+        ang, rad = rng.uniform(0, 2 * np.pi), rng.uniform(0.05, 0.07)
+        p = np.array([0.2 + rad * np.cos(ang), 0.2 + rad * np.sin(ang),
+                      rng.uniform(0.0, 0.41)])
+        centre = (np.floor(p / h) + 0.5) * h
+        rows.append(centre)
+        rows.extend(centre + dirs * 0.25 * h)
+    return index._queries_f32(np.asarray(rows) - index._shift)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """The kernel against its plain version at the ``grid_select`` and
     ``ring_select`` shapes: a 3D cloud's dilated rows [65536, W] k=26,
-    and 1024 radius-4 rows, half of them masked."""
+    1024 radius-4 rows in random order, half of them masked, and 2,304
+    rows in the main path's order (256 cells beside the cloud's hole, each
+    cell's 9 centres consecutive), whole and with a quarter of them masked,
+    which cuts runs of rows that share a home cell."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(0)
-    pts = rng.uniform([0.0, 0.0, 0.0], [2.2, 0.41, 0.41], (500_000, 3))
+    xyz = rng.uniform([0.0, 0.0, 0.0], [2.2, 0.41, 0.41], (560_000, 3))
+    pts = xyz[np.linalg.norm(xyz[:, :2] - 0.2, axis=1) > 0.05][:500_000]
     index = tknn.KNNIndex(pts, device="cuda")
     g = index._grid
     q = index._queries_f32(rng.uniform([0.0, 0.0, 0.0], [2.2, 0.41, 0.41],
@@ -369,12 +456,22 @@ def test_kernel_matches_plain_on_card():
     args = (q, g["dil_pts"], g["dil_cand"], flat, 26)
     got, ref = gs.grid_select_dilated(*args), gs.grid_select_dilated_plain(
         *args)
-    flat4 = tknn._grid_neighborhood(q[:1024], g["cell_list"].shape[0],
-                                    g["origin"], g["inv_h"], g["dims"], 4)[0]
-    mask = torch.from_numpy(rng.uniform(size=1024) < 0.5).cuda()
-    args = (q[:1024], g["cell_pts"], g["cell_list"], flat4, 26, mask)
-    got += gs.grid_select_blocked(*args)
-    ref += gs.grid_select_blocked_plain(*args)
+
+    def flat4(qs):
+        return tknn._grid_neighborhood(qs, g["cell_list"].shape[0],
+                                       g["origin"], g["inv_h"], g["dims"],
+                                       4)[0]
+    mq = _main_order(index, 256, rng)
+    centre = flat4(mq)[:, 364]
+    assert bool((centre[1:] == centre[:-1]).any())  # runs of a home cell
+    for qs, mask in ((q[:1024], torch.from_numpy(
+                          rng.uniform(size=1024) < 0.5).cuda()),
+                     (mq, None),
+                     (mq, torch.from_numpy(
+                         rng.uniform(size=mq.shape[0]) >= 0.25).cuda())):
+        args = (qs, g["cell_pts"], g["cell_list"], flat4(qs), 26, mask)
+        got += gs.grid_select_blocked(*args)
+        ref += gs.grid_select_blocked_plain(*args)
     torch.cuda.synchronize()
-    assert gs.launches == before + 2
+    assert gs.launches == before + 4
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
