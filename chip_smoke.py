@@ -37,6 +37,11 @@ Phases:
   27·32], a shard's unsorted rows [71 040, 864] k=26), timed beside the
   plain version, the parent's unfused chain (``unfused_ms``: the plain
   distances, ``topk_smallest`` and the canonical sort) and the bound;
+  the epoch's dilated rows in the main path's order (each of a grid's
+  level-6 or level-7 cells in Morton order, its centre then its
+  children's centres: [65 536, 384] k=26, [11 520, 192] k=8 on the
+  ``oat2d`` layout, and a shard's unsorted [71 040, 864]), timed beside
+  the random order; every dilated case prints ``run_stats`` of its rows;
   ring rows in the main path's order (each of 256 cells' 1 + 2^d centres
   consecutive, beside ``grid3d``'s hole; and 2D at k=8 beside the
   airfoil), timed beside the random order, then with a quarter of them
@@ -486,6 +491,38 @@ def main_order_queries(index, lo, width: float, axis_xy, radii, z_range,
     return index._queries_f32(np.asarray(rows) - index._shift)
 
 
+def epoch_order_queries(index, lo, hi, width: float, level: int,
+                        n_queries: int) -> torch.Tensor:
+    """Queries of an epoch in the main path's order, centred f32 on the
+    index's device: the cells of ``level`` (width ``width / 2^level``)
+    whose lower corners lie in the box ``[lo, hi)``, in Morton order (the
+    order in which refinement appends siblings), each cell's centre then
+    its 2^d prospective children's centres (``SamplingTree._query_centers``),
+    the first ``n_queries`` of them.  Consecutive queries share a home
+    cell, and with it a dilated row, as a window's do."""
+    lo = np.asarray(lo, np.float64)
+    d = lo.size
+    h = width / 2.0 ** level
+    n_axis = np.ceil((np.asarray(hi, np.float64) - lo) / h).astype(np.int64)
+    coords = np.stack(np.meshgrid(*[np.arange(n) for n in n_axis],
+                                  indexing="ij"), -1).reshape(-1, d)
+    key = np.zeros(coords.shape[0], np.int64)
+    for bit in range(level, -1, -1):
+        for a in range(d):
+            key = (key << 1) | ((coords[:, a] >> bit) & 1)
+    coords = coords[np.argsort(key, kind="stable")]
+    n_cells = -(-n_queries // (1 + 2 ** d))
+    if coords.shape[0] < n_cells:
+        raise ValueError(f"{coords.shape[0]} cells of level {level}, "
+                         f"{n_cells} wanted")
+    centre = lo + (coords[:n_cells] + 0.5) * h
+    dirs = lattice(d, 2) * 2.0 - 1.0
+    rows = np.concatenate([centre[:, None, :],
+                           centre[:, None, :] + dirs * (0.25 * h)], axis=1)
+    rows = rows.reshape(-1, d)[:n_queries]
+    return index._queries_f32(rows - index._shift)
+
+
 def in_cell_queries(g, cell, n: int, seed: int) -> torch.Tensor:
     """``n`` seeded queries inside the index grid's cell ``cell`` (lattice
     coordinates; outside the grid, they clamp to its nearest cell)."""
@@ -541,6 +578,15 @@ def phase_grid_select_kernel() -> dict:
     q = centred(i3, rng.uniform(bounds[0], bounds[1], (65536, 3)))
     case("grid_select", "grid_select_dilated",
          (q, g3["dil_pts"], g3["dil_cand"], dil_flat(g3, q), 26, True), True)
+    # the epoch's rows in the main path's order (level-6 cells in Morton
+    # order, each cell's centre then its 8 children's): runs of queries
+    # share a home cell's row; timed beside the random order above
+    lo3 = np.asarray(bounds[0], np.float64)
+    width3 = float(np.max(np.subtract(bounds[1], bounds[0])))
+    eq3 = epoch_order_queries(i3, lo3, bounds[1], width3, 6, 65536)
+    case("grid_select_main_order", "grid_select_dilated",
+         (eq3, g3["dil_pts"], g3["dil_cand"], dil_flat(g3, eq3), 26, True),
+         True)
     # the ring's rows: queries beside the cloud's cylindrical hole, half of
     # them marked as a ring pass leaves them
     ang = rng.uniform(0, 2 * np.pi, 1024)
@@ -558,8 +604,6 @@ def phase_grid_select_kernel() -> dict:
     # consecutive, sibling cells after each other): runs of rows share a
     # home cell, and with it the whole row of flat; timed beside the
     # random order above
-    lo3 = np.asarray(bounds[0], np.float64)
-    width3 = float(np.max(np.subtract(bounds[1], bounds[0])))
     mq = main_order_queries(i3, lo3, width3, (0.2, 0.2), (0.05, 0.07),
                             (0.0, 0.41), 32, seed=12)
     margs = (mq, g3["cell_pts"], g3["cell_list"], nb_flat(g3, mq, 4), 26)
@@ -598,6 +642,9 @@ def phase_grid_select_kernel() -> dict:
     q = centred(i3, rng.uniform(bounds[0], bounds[1], (71040, 3)))
     case("shard_grid_select", "grid_select_dilated",
          (q, rows_pts, rows_cand, dil_flat(g3, q), 26, False), True)
+    eq = epoch_order_queries(i3, lo3, bounds[1], width3, 6, 71040)
+    case("shard_grid_select_main_order", "grid_select_dilated",
+         (eq, rows_pts, rows_cand, dil_flat(g3, eq), 26, False), True)
     del rows_pts, rows_cand
     # the edges of k on the 3D rows: one, and the queue's 256
     q = centred(i3, rng.uniform(bounds[0], bounds[1], (1024, 3)))
@@ -617,6 +664,9 @@ def phase_grid_select_kernel() -> dict:
     q = centred(i2, rng.uniform([-0.5, -0.5], [1.5, 0.5], (11520, 2)))
     case("grid_select_2d", "grid_select_dilated",
          (q, g2["dil_pts"], g2["dil_cand"], dil_flat(g2, q), 8, True), True)
+    eq = epoch_order_queries(i2, [-0.5, -0.5], [1.5, 0.5], 2.0, 7, 11520)
+    case("grid_select_2d_main_order", "grid_select_dilated",
+         (eq, g2["dil_pts"], g2["dil_cand"], dil_flat(g2, eq), 8, True), True)
     case("ring_select_2d", "grid_select_blocked",
          (q[:1024], g2["cell_pts"], g2["cell_list"],
           nb_flat(g2, q[:1024], 4), 8), True)
@@ -728,23 +778,26 @@ def grid_bound(entry: str, a: dict) -> dict:
 
 
 def run_stats(flat: torch.Tensor, mask=None) -> dict:
-    """How the rows of a blocked call share neighbourhoods.  A row's
+    """How the rows of a call share what they read.  A blocked row's
     neighbourhood ``flat[q]`` is a function of its home cell, the centre
-    slab ``flat[q, (R - 1) / 2]``.  Returns the rows, the unmasked rows,
-    the distinct home cells among them, the mean length of runs of equal
-    home cell in the unmasked rows' order (a masked row is skipped, it
-    does not end a run), and for chunks of 4, 8 and 16 consecutive rows
-    the unmasked rows per distinct home cell in a chunk (the rows of one
-    block of the kernel that read the same slabs)."""
-    rows, r = flat.shape
-    centre = flat[:, (r - 1) // 2]
+    slab ``flat[q, (R - 1) / 2]``; a dilated row ``flat [Q]`` is its home
+    cell's row itself.  Returns the rows, the unmasked rows, the distinct
+    home cells among them and the rows per distinct home cell, the mean
+    length of runs of equal home cell in the unmasked rows' order (a
+    masked row is skipped, it does not end a run), and for chunks of 4, 8
+    and 16 consecutive rows the unmasked rows per distinct home cell in a
+    chunk (the rows of one block of the kernel that read the same
+    slabs)."""
+    rows = flat.shape[0]
+    centre = flat if flat.dim() == 1 else flat[:, (flat.shape[1] - 1) // 2]
     keep = (torch.ones(rows, dtype=torch.bool, device=flat.device)
             if mask is None else mask)
     live = centre[keep]
     n = int(live.numel())
     n_runs = int((live[1:] != live[:-1]).sum()) + 1 if n else 0
-    out = {"rows": rows, "unmasked_rows": n,
-           "distinct_home_cells": int(torch.unique(live).numel()),
+    distinct = int(torch.unique(live).numel())
+    out = {"rows": rows, "unmasked_rows": n, "distinct_home_cells": distinct,
+           "rows_per_home_cell": n / distinct if distinct else 0.0,
            "mean_run": n / n_runs if n_runs else 0.0}
     for g in (4, 8, 16):
         pad = -(-rows // g) * g - rows
@@ -817,6 +870,7 @@ def check_grid(entry: str, args: tuple, kwargs: dict = None,
            "bitwise_equal_plain": True, "max_abs_err": err}
     if entry == "grid_select_dilated":
         res["sorted_rows"] = a["sorted_rows"]
+        res["run_stats"] = run_stats(a["flat"])
     else:
         if a["mask"] is not None:
             res["masked_out_rows"] = int((~a["mask"]).sum())

@@ -40,37 +40,46 @@
 // the 3D workloads, [1024, 729*32] candidates, reads at most 287 MB, 0.086
 // ms at 3.35 TB/s; the epoch's dilated [65536, 384] 302 MB, 0.090 ms.  The
 // bytes mostly come from L2 (a call's distinct slabs are a few MB).  What
-// held the first blocked design back (8 warps a row, slabs in index order)
-// was its warp queue: without it the ring pass took 0.058 of 0.107 ms on an
-// H100, with or without the coordinate loads, and without the f64 chain
-// 0.014 ms less (grid_select_compare.py --ablate; PERF.md).
+// held both first designs back was the warp queue (grid_select_compare.py
+// --ablate on an H100; PERF.md): without it the blocked ring pass took
+// 0.058 of 0.107 ms, with or without the coordinate loads, and without the
+// f64 chain 0.014 ms less; the dilated rows, whose queue started blind and
+// took 128 keys before its first threshold, took 0.097 of 0.220 ms
+// ([65536, 384] k=26), 0.036 of 0.113 ([50263, 192] k=8) and 0.265 of
+// 0.607 (a shard's [71040, 864] k=26 + 8), the f64 chain at most 0.06 ms
+// of any, rows a block and the rows' order (1.1-1.5 queries in a run of
+// one row) next to nothing.
 //
 // What the design does about it:
 //   * Each lane takes groups of four consecutive candidates (4*d floats,
 //     16-byte aligned), d 16-byte vector loads a group, four groups in
-//     flight, computes their four distances in registers and offers the
-//     four keys to the warp queue of warp_select.cuh (csrc/topk_smallest.cu
-//     uses the same queue).  A group whose four distances all lie above the
-//     queue's threshold costs four compares and one vote.
-//   * Dilated rows (<= 2048 candidates) take one warp a row, four rows a
-//     block; wider rows one block of up to 8 warps a row, each warp over a
-//     strided range of groups, the warps' queues merged pairwise in shared
-//     memory.
+//     flight, and computes their four distances in registers (csrc/
+//     topk_smallest.cu uses the same queue, warp_select.cuh).
+//   * The dilated entry scores a row in f32 first and bounds its kk-th
+//     distance from each lane's nearest (refined by counting where a
+//     shard's pads leave that loose), so that only the candidates under the
+//     bound, about kk of them, take the f64 chain and the queue, 32 at a
+//     time and one a lane: about one merge a row instead of four to six,
+//     one f64 pass instead of twelve (the section below).  Dilated rows
+//     (<= 2048 candidates) take one warp a row, four rows a block; wider
+//     rows one block of up to 8 warps a row, each warp over a strided range
+//     of groups, the warps' queues merged pairwise in shared memory.
 //   * The blocked entry scans a row's slabs nearest first (kSlabOrder: the
 //     offsets sorted by length), so the queue's threshold falls within the
 //     first slabs and later groups are rarely offered; the slots keep their
 //     neighbour-offset numbering, and the kk smallest (sq, slot) keys are
 //     one set whatever the order.  A group whose f32 FMA distances all lie
 //     above the threshold by more than their rounding (skip_above) skips
-//     the f64 chain.  A block takes a chunk of 1-8 consecutive rows, 8-1
-//     warps a row, and first reads each row's
-//     cell ids, in scan order, into shared memory; rows of the chunk then
-//     read their slabs in the same order at about the same pace, so a run
-//     of rows with one neighbourhood finds in L1 what its first row brought
-//     (on the main path such runs are short: 1.03 rows on grid3d's ring).
-//     Staging a run's slabs in shared memory with cp.async was built and
-//     measured slower: each tile's copy latency held the run's warps at a
-//     barrier (PERF.md).
+//     the f64 chain, and a group whose four distances all lie above the
+//     queue's threshold costs four compares and one vote.  A block takes a
+//     chunk of 1-8 consecutive rows, 8-1 warps a row, and first reads each
+//     row's cell ids, in scan order, into shared memory; rows of the chunk
+//     then read their slabs in the same order at about the same pace, so a
+//     run of rows with one neighbourhood finds in L1 what its first row
+//     brought (on the main path such runs are short: 1.03 rows on grid3d's
+//     ring).  Staging a run's slabs in shared memory with cp.async was
+//     built and measured slower: each tile's copy latency held the run's
+//     warps at a barrier (PERF.md).
 //   * A blocked group never straddles two slabs (C is a power of two, at
 //     least 4): its slab's cell id is one shared read.
 //   * The re-sort by (sq, idx, slot) is a bitonic network over the kk keys
@@ -87,19 +96,6 @@ namespace {
 
 constexpr int kUnroll = 4;  // groups of four candidates in flight a lane
 
-struct Args {
-  const float* queries;        // [q, d]
-  const float* pts;            // dilated [rows, W*d]; blocked [rows, C, d]
-  const int* cand;             // dilated [rows, W];   blocked [rows, C]
-  const long long* flat;       // dilated [q];         blocked [q, R]
-  const unsigned char* mask;   // [q] bool, or null: every row
-  float* sq;                   // [q, k]
-  long long* idx;              // [q, k]
-  int* sel;                    // [q, k]
-  int q, width, r, log2c, k, kk, wpr;
-  bool canonical;              // re-sort the kk by (sq, idx, slot)
-};
-
 // float j of a group's 4*D coordinates, loaded as D float4 (j known at
 // compile time once the loops are unrolled, so no local memory)
 template <int D>
@@ -113,81 +109,56 @@ __device__ __forceinline__ float coord(const float4 (&v)[D], int j) {
   }
 }
 
-// sq of candidate t of a group, rounded as the port's `_sqsum`
+// sq of the candidate at c, rounded as the port's `_sqsum`
 template <int D>
-__device__ __forceinline__ float sq_distance(const float (&qv)[D],
-                                             const float4 (&v)[D], int t) {
-  const float d0 = __fsub_rn(qv[0], coord<D>(v, t * D));
+__device__ __forceinline__ float exact_sq(const float (&qv)[D],
+                                          const float (&c)[D]) {
+  const float d0 = __fsub_rn(qv[0], c[0]);
   float out = __fmul_rn(d0, d0);
 #pragma unroll
   for (int a = 1; a < D; ++a) {
-    const double da = (double)__fsub_rn(qv[a], coord<D>(v, t * D + a));
+    const double da = (double)__fsub_rn(qv[a], c[a]);
     out = __double2float_rn(__dadd_rn(__dmul_rn(da, da), (double)out));
   }
   return out;
 }
 
-// One query's dilated row: slot j's coordinates at base[j*D, j*D + D).
+// sq of candidate t of a group
 template <int D>
-struct DilatedRow {
-  const float* base;
-  const int* cand;
+__device__ __forceinline__ float sq_distance(const float (&qv)[D],
+                                             const float4 (&v)[D], int t) {
+  float c[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) c[a] = coord<D>(v, t * D + a);
+  return exact_sq<D>(qv, c);
+}
 
-  __device__ DilatedRow(const Args& a, long long row) {
-    const long long f = __ldg(a.flat + row);
-    base = a.pts + f * a.width * D;
-    cand = a.cand + f * a.width;
+// sq of candidate t of a group in f32 fused multiply-adds.  Both this and
+// sq_distance round a sum of the same non-negative terms three times (the
+// f64 sum's rounding adds 2^-53), so sq_distance is at least this times
+// (1 - 6.01 * 2^-24), less 3 * 2^-150 where the sums underflow, and at
+// most this times (1 + 6.01 * 2^-24), plus 7 * 2^-150.
+template <int D>
+__device__ __forceinline__ float approx_sq(const float (&qv)[D],
+                                           const float4 (&v)[D], int t) {
+  const float d0 = __fsub_rn(qv[0], coord<D>(v, t * D));
+  float out = __fmul_rn(d0, d0);
+#pragma unroll
+  for (int a = 1; a < D; ++a) {
+    const float da = __fsub_rn(qv[a], coord<D>(v, t * D + a));
+    out = __fmaf_rn(da, da, out);
   }
-  __device__ __forceinline__ const float* group(int i) const {
-    return base + (long long)i * 4 * D;
-  }
-  __device__ __forceinline__ int candidate(unsigned slot) const {
-    return __ldg(cand + slot);
-  }
-};
+  return out;
+}
 
-// This warp's groups of one row (warp wr of wpr takes groups wr*32 + lane,
-// (wr + wpr)*32 + lane, ...): every distance offered to the queue once.
-template <int Q, int D, class Row>
-__device__ __forceinline__ void select_row(WarpSelect<Q>& ws, const Row& row,
-                                           const float (&qv)[D], int groups,
-                                           int wr, int wpr, int lane) {
-  const int stride = kWarp * wpr;
-  for (int s = wr * kWarp; s < groups; s += kUnroll * stride) {
-    float4 v[kUnroll][D];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = s + u * stride + lane;
-      if (i < groups) {
-        const float4* p = reinterpret_cast<const float4*>(row.group(i));
-#pragma unroll
-        for (int a = 0; a < D; ++a) v[u][a] = __ldg(p + a);
-      } else {
-#pragma unroll
-        for (int a = 0; a < D; ++a) v[u][a] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (s + u * stride < groups) {  // the same for the whole warp
-        const int i = s + u * stride + lane;
-        const bool ok = i < groups;
-        float dist[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) dist[t] = sq_distance<D>(qv, v[u], t);
-        const float th = ws.thresh_value;
-        const bool near = ok && (dist[0] <= th || dist[1] <= th ||
-                                 dist[2] <= th || dist[3] <= th);
-        if (__any_sync(kFull, near)) {
-          const unsigned c0 = 4u * (unsigned)i;
-#pragma unroll
-          for (int t = 0; t < 4; ++t) ws.offer(make_key(dist[t], c0 + t), ok);
-          ws.drain();
-        }
-      }
-    }
-  }
-  ws.flush();
+// An approx_sq above this puts sq_distance above th: th(1 + 2^-20) +
+// 2^-126 by the bound of approx_sq; +inf (skip nothing) while th is +inf,
+// NaN or above 1e38, near the end of the f32 range, where an approx_sq
+// that overflows would not bound sq_distance.  By the other half of the
+// bound, an approx_sq of x puts sq_distance at or below skip_above(x).
+__device__ __forceinline__ float skip_above(float th) {
+  return th < 1e38f ? __fmaf_rn(th, 1.0f + 0x1p-20f, 0x1p-126f)
+                    : __uint_as_float(0x7f800000u);
 }
 
 __device__ __forceinline__ bool pair_less(u64 a, unsigned as, u64 b,
@@ -238,47 +209,309 @@ __device__ __forceinline__ void sort_pairs(u64 (&key)[Q], unsigned (&slot)[Q],
   }
 }
 
-template <int Q, int D, class Row>
-__global__ void __launch_bounds__(kMaxWarpsPerRow * kWarp)
-grid_select_kernel(const Args a) {
-  constexpr int kSlots = slots_per_warp(Q);
+// ---- The dilated entry ---------------------------------------------------
+//
+// One warp a row (four rows a block), or for rows wider than
+// kNarrowMaxWidth a block of warps a row, each over a strided range of
+// groups, their queues merged pairwise.  A warp takes its groups in
+// segments of kUnroll groups a lane (512 candidates; the epoch's rows are
+// one segment, a shard's 864 two), each read once:
+//   1. Score the segment in f32 FMAs (approx_sq), into registers, and keep
+//      each lane's seed_best smallest over the segments so far.  The kk-th
+//      smallest T of the warp's lane bests is at least the kk-th smallest
+//      approx_sq of its candidates (they are a subset), so kk candidates
+//      have approx_sq <= T and thus sq <= skip_above(T): the kk-th
+//      smallest sq is at most skip_above(T), and at most the queue's
+//      threshold, the exact kk-th of the keys merged so far.
+//   2. Where that keeps more than two batches (lanes of pads only leave T
+//      loose), bisect T's bits down while the segment still has kk
+//      approx_sq at or below it (refine_bound): the same argument holds.
+//   3. A candidate whose approx_sq lies above skip_above of the bound has
+//      its sq above the bound, so it is none of the kk smallest (sq, slot)
+//      keys.  The others' slots are compacted in shared memory and, 32 at
+//      a time, each lane takes one, reads its coordinates again (from L1
+//      or L2: the row was just read), computes its sq in the f64 chain and
+//      merges the key into the warp queue.  The kk smallest keys of the
+//      candidates kept are those of the whole row, whatever order or
+//      subset the bounds come from.
+// A row with fewer than kk real candidates keeps every candidate up to
+// the pads' (about 1e30, all tied): correct, at about the first design's
+// cost.  A NaN or +inf bound keeps every candidate.
+
+// lane bests that seed the bound: one where k is small against the 32
+// lanes (the port's 2D selection takes 8), two in 3D (26)
+template <int D>
+__device__ constexpr int seed_best() {
+  return D == 2 ? 1 : 2;
+}
+// blocks of 256 threads a multiprocessor the registers are bounded for:
+// 64 registers a thread (measured faster than the 80 ptxas takes unbounded)
+constexpr int kDilatedMinBlocks = 4;
+// kept candidates above which a segment's bound is refined (two batches),
+// and the most counts the refinement takes
+constexpr int kRefineAbove = 2 * kWarp;
+constexpr int kRefineSteps = 12;
+// slots a warp holds compacted at most: fewer than 32 left over, plus one
+// segment's (kUnroll groups of four a lane)
+constexpr int kPendSlots = kWarp + kUnroll * 4 * kWarp;
+
+// shared memory of one warp, in keys: its compacted slots, which the
+// pairwise merge of a wide row then reuses for the warp's sorted queue
+__host__ __device__ constexpr int dilated_slots(int q) {
+  return kPendSlots / 2 > kWarp * q ? kPendSlots / 2 : kWarp * q;
+}
+
+struct DilatedArgs {
+  const float* queries;        // [q, d]
+  const float* pts;            // [rows, W*d]
+  const int* cand;             // [rows, W]
+  const long long* flat;       // [q]
+  float* sq;                   // [q, k]
+  long long* idx;              // [q, k]
+  int* sel;                    // [q, k]
+  int q, width, k, kk, wpr;
+  bool canonical;              // re-sort the kk by (sq, idx, slot)
+};
+
+// ascending bitonic sort of one value a lane across the warp
+__device__ __forceinline__ unsigned sort32(unsigned c, int lane) {
+#pragma unroll
+  for (int size = 2; size <= kWarp; size <<= 1) {
+    const bool up = (lane & size) == 0;
+#pragma unroll
+    for (int s = size >> 1; s > 0; s >>= 1) {
+      const unsigned o = __shfl_xor_sync(kFull, c, s);
+      c = (((lane & s) == 0) == up) ? min(c, o) : max(c, o);
+    }
+  }
+  return c;
+}
+
+// ascending merge of a bitonic sequence of one value a lane
+__device__ __forceinline__ unsigned merge32(unsigned c, int lane) {
+#pragma unroll
+  for (int s = kWarp / 2; s > 0; s >>= 1) {
+    const unsigned o = __shfl_xor_sync(kFull, c, s);
+    c = (lane & s) == 0 ? min(c, o) : max(c, o);
+  }
+  return c;
+}
+
+// The kk-th smallest of the lanes' P bests b0 (and b1), approx_sq bits
+// (non-negative floats order as unsigned; ~0u, a NaN, for none); ~0u
+// where kk exceeds them.
+template <int P>
+__device__ __forceinline__ unsigned seed_threshold(unsigned b0, unsigned b1,
+                                                   int kk, int lane) {
+  if (kk > P * kWarp) return ~0u;
+  b0 = sort32(b0, lane);
+  if (P == 1) return __shfl_sync(kFull, b0, kk - 1);
+  // b0 ascending against b1 descending: the elementwise min holds the 32
+  // smallest of both and the max the 32 largest, each a bitonic run
+  const unsigned r = __shfl_sync(kFull, sort32(b1, lane), kWarp - 1 - lane);
+  return kk <= kWarp ? __shfl_sync(kFull, merge32(min(b0, r), lane), kk - 1)
+                     : __shfl_sync(kFull, merge32(max(b0, r), lane),
+                                   kk - 1 - kWarp);
+}
+
+// approx_sq of this lane's kUnroll groups of the segment at s (groups s +
+// u*stride + lane), kUnroll groups' loads in flight
+template <int D>
+__device__ __forceinline__ void score_segment(float (&sq)[kUnroll][4],
+                                              const float* base,
+                                              const float (&qv)[D], int s,
+                                              int stride, int groups,
+                                              int lane) {
+  float4 v[kUnroll][D];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = s + u * stride + lane;
+    if (i < groups) {
+      const float4* p = reinterpret_cast<const float4*>(base + i * 4 * D);
+#pragma unroll
+      for (int a = 0; a < D; ++a) v[u][a] = __ldg(p + a);
+    } else {
+#pragma unroll
+      for (int a = 0; a < D; ++a) v[u][a] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      sq[u][t] = s + u * stride < groups ? approx_sq<D>(qv, v[u], t) : 0.f;
+}
+
+// Candidates of the warp's segment (score_segment's) whose approx_sq is at
+// or below t (NaN counted, as the filter keeps it).
+__device__ __forceinline__ int count_at_most(const float (&sq)[kUnroll][4],
+                                             float t, int s, int stride,
+                                             int groups, int lane) {
+  unsigned c = 0;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const bool ok = s + u * stride + lane < groups;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c += ok && !(sq[u][j] > t);
+  }
+  return (int)__reduce_add_sync(kFull, c);
+}
+
+// A lower bound than `hi` for the kk-th smallest approx_sq of the row,
+// where the segment alone has kk candidates at or below hi (else hi): a
+// bisection of the values' bits between 0 and hi, at most kRefineSteps
+// counts, kept at a value with kk or more candidates at or below it and
+// stopped once they are at most kRefineAbove.
+__device__ __forceinline__ unsigned refine_bound(
+    const float (&sq)[kUnroll][4], unsigned hi, int kk, int s, int stride,
+    int groups, int lane) {
+  hi = min(hi, 0x7f800000u);  // a NaN bound as +inf
+  if (count_at_most(sq, __uint_as_float(hi), s, stride, groups, lane) < kk)
+    return hi;
+  unsigned lo = 0u;
+  for (int step = 0; step < kRefineSteps && hi - lo > 1u; ++step) {
+    const unsigned mid = lo + (hi - lo) / 2u;
+    const int c =
+        count_at_most(sq, __uint_as_float(mid), s, stride, groups, lane);
+    if (c < kk) {
+      lo = mid;
+    } else {
+      hi = mid;
+      if (c <= kRefineAbove) break;
+    }
+  }
+  return hi;
+}
+
+// The f64 chain of n (<= 32) compacted slots, one a lane, and their keys
+// merged into the queue; the first merge of a warp (`fresh`) sorts them
+// into the empty queue.
+template <int Q, int D>
+__device__ __forceinline__ void score_pending(WarpSelect<Q>& ws, bool& fresh,
+                                              const unsigned* pend, int n,
+                                              const float* base,
+                                              const float (&qv)[D],
+                                              int lane) {
+  __syncwarp();
+  const bool has = lane < n;
+  const unsigned slot = has ? pend[lane] : 0u;
+  __syncwarp();
+  float c[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+    c[a] = has ? __ldg(base + (size_t)slot * D + a) : 0.f;
+  const u64 key = make_key(exact_sq<D>(qv, c), slot);
+  const bool take = has && key < ws.thresh;
+  if (fresh) {
+    ws.q[0] = warp_sort32(take ? key : kEmpty, lane);
+    ws.update_thresh();
+    fresh = false;
+  } else if (__any_sync(kFull, take)) {
+    ws.merge(take ? key : kEmpty);
+  }
+}
+
+// This warp's kk smallest (sq, slot) keys of its groups of one row (warp
+// wr of wpr takes groups wr*32 + lane, (wr + wpr)*32 + lane, ...), one
+// segment (kUnroll groups a lane) at a time: its approx_sq in registers,
+// the lane bests, the bound of the kk-th sq (the seed's over the
+// candidates scored so far, or the queue's threshold, the lower), then
+// the slots kept compacted in `pend` (the warp's kPendSlots slots of
+// shared memory) and scored 32 at a time.  Without `seed` (a shard's
+// rows, whose slabs each end in pads: with C = 32 the lanes that hold a
+// slab's last groups hold pads only, so the lane bests are mostly pads)
+// the bound comes from the counts alone.
+template <int Q, int D>
+__device__ __forceinline__ void select_dilated(WarpSelect<Q>& ws,
+                                               unsigned* pend,
+                                               const float* base,
+                                               const float (&qv)[D],
+                                               int groups, int wr, int wpr,
+                                               bool seed, int lane) {
+  constexpr int P = seed_best<D>();
+  const int stride = kWarp * wpr;
+  const int step = kUnroll * stride;
+  unsigned b0 = ~0u, b1 = ~0u;  // this lane's P smallest approx_sq bits
+  int n = 0;
+  bool fresh = true;
+  for (int s = wr * kWarp; s < groups; s += step) {
+    float sq[kUnroll][4];
+    score_segment<D>(sq, base, qv, s, stride, groups, lane);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const unsigned x =
+            s + u * stride + lane < groups ? __float_as_uint(sq[u][t]) : ~0u;
+        if (P == 2) b1 = min(b1, max(b0, x));
+        b0 = min(b0, x);
+      }
+    unsigned bound = seed ? seed_threshold<P>(b0, b1, ws.k, lane) : ~0u;
+    const float queue_lim = skip_above(ws.thresh_value);
+    float lim =
+        fminf(skip_above(skip_above(__uint_as_float(bound))), queue_lim);
+    if (count_at_most(sq, lim, s, stride, groups, lane) > kRefineAbove) {
+      // lanes of pads only (a row short of real candidates) leave the
+      // seed loose
+      bound = refine_bound(sq, bound, ws.k, s, stride, groups, lane);
+      lim = fminf(skip_above(skip_above(__uint_as_float(bound))), queue_lim);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (s + u * stride >= groups) break;  // the same for the whole warp
+      const int i = s + u * stride + lane;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const bool keep = i < groups && !(sq[u][t] > lim);
+        const unsigned m = __ballot_sync(kFull, keep);
+        if (keep) pend[n + __popc(m & ((1u << lane) - 1u))] = 4u * i + t;
+        n += __popc(m);
+      }
+    }
+    while (n >= kWarp) {
+      n -= kWarp;
+      score_pending<Q, D>(ws, fresh, pend + n, kWarp, base, qv, lane);
+    }
+  }
+  if (n > 0) score_pending<Q, D>(ws, fresh, pend, n, base, qv, lane);
+}
+
+template <int Q, int D>
+__global__ void __launch_bounds__(kMaxWarpsPerRow * kWarp, kDilatedMinBlocks)
+grid_select_dilated_kernel(const DilatedArgs a) {
+  constexpr int kSlots = dilated_slots(Q);
   extern __shared__ u64 smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int rows_per_block = blockDim.x / (kWarp * a.wpr);
   const int wr = warp % a.wpr;
   const long long row = (long long)blockIdx.x * rows_per_block + warp / a.wpr;
-  // only narrow blocks (wpr == 1) hold rows past the end, and neither
-  // they nor a row a mask leaves out (the dilated entry passes none)
-  // reaches a block barrier
+  // only narrow blocks (wpr == 1) hold rows past the end, and they never
+  // reach a block barrier
   if (row >= a.q) return;
-  float* out_sq = a.sq + row * a.k;
-  long long* out_idx = a.idx + row * a.k;
-  int* out_sel = a.sel + row * a.k;
-  if (a.mask != nullptr && !a.mask[row]) {
-    if (wr == 0) {
-      for (int j = lane; j < a.k; j += kWarp) {
-        out_sq[j] = __uint_as_float(0x7f800000u);
-        out_idx[j] = 0;
-        out_sel[j] = 0;
-      }
-    }
-    return;
-  }
 
   float qv[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) qv[d] = __ldg(a.queries + row * D + d);
-  const Row src(a, row);
+  const long long f = __ldg(a.flat + row);
+  const float* base = a.pts + f * a.width * D;
+  const int* cand = a.cand + f * a.width;
   u64* mine = smem + (size_t)warp * kSlots;
   WarpSelect<Q> ws;
   ws.init(mine, lane, a.kk);
-  select_row<Q, D>(ws, src, qv, a.width / 4, wr, a.wpr, lane);
-  if (a.wpr > 1) merge_row_queues<Q>(ws, mine, kSlots, wr, a.wpr);
+  select_dilated<Q, D>(ws, reinterpret_cast<unsigned*>(mine), base, qv,
+                       a.width / 4, wr, a.wpr, !a.canonical, lane);
+  if (a.wpr > 1) {
+    __syncwarp();
+    merge_row_queues<Q>(ws, mine, kSlots, wr, a.wpr);
+  }
   if (wr != 0) return;
 
   // the kk selected by (sq, slot); a +inf distance takes slot 0 (the
   // selection kernel's caveat)
+  float* out_sq = a.sq + row * a.k;
+  long long* out_idx = a.idx + row * a.k;
+  int* out_sel = a.sel + row * a.k;
   u64 key[Q];
   unsigned slot[Q];
 #pragma unroll
@@ -297,7 +530,7 @@ grid_select_kernel(const Args a) {
 #pragma unroll
     for (int r = 0; r < Q; ++r) {
       if (r * kWarp + lane < a.kk) {
-        key[r] |= (unsigned)src.candidate(slot[r]);
+        key[r] |= (unsigned)__ldg(cand + slot[r]);
       } else {
         key[r] = kEmpty;
         slot[r] = ~0u;
@@ -312,37 +545,31 @@ grid_select_kernel(const Args a) {
       out_sq[j] = key_value(key[r]);
       out_sel[j] = (int)slot[r];
       out_idx[j] = a.canonical ? (long long)(unsigned)key[r]
-                               : (long long)src.candidate(slot[r]);
+                               : (long long)__ldg(cand + slot[r]);
     }
   }
 }
 
-template <int Q, int D, class Row>
-cudaError_t launch(Args a, cudaStream_t stream) {
-  constexpr int kSlots = slots_per_warp(Q);
+template <int Q, int D>
+cudaError_t launch_dilated(DilatedArgs a, cudaStream_t stream) {
   a.wpr = warps_per_row(a.width);
   const int threads =
       a.wpr == 1 ? kNarrowRowsPerBlock * kWarp : a.wpr * kWarp;
   const int rows_per_block = threads / (kWarp * a.wpr);
   const unsigned blocks =
       (unsigned)((a.q + (long long)rows_per_block - 1) / rows_per_block);
-  const size_t smem = (size_t)(threads / kWarp) * kSlots * sizeof(u64);
-  grid_select_kernel<Q, D, Row><<<blocks, threads, smem, stream>>>(a);
+  const size_t smem = (size_t)(threads / kWarp) * dilated_slots(Q) *
+                      sizeof(u64);
+  grid_select_dilated_kernel<Q, D><<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, class Row>
-cudaError_t launch_q(const Args& a, cudaStream_t stream) {
-  if (a.kk <= 32) return launch<1, D, Row>(a, stream);
-  if (a.kk <= 64) return launch<2, D, Row>(a, stream);
-  if (a.kk <= 128) return launch<4, D, Row>(a, stream);
-  return launch<8, D, Row>(a, stream);
-}
-
-template <template <int> class Row>
-cudaError_t launch_d(const Args& a, int d, cudaStream_t stream) {
-  return d == 2 ? launch_q<2, Row<2>>(a, stream)
-                : launch_q<3, Row<3>>(a, stream);
+template <int D>
+cudaError_t launch_dilated_q(const DilatedArgs& a, cudaStream_t stream) {
+  if (a.kk <= 32) return launch_dilated<1, D>(a, stream);
+  if (a.kk <= 64) return launch_dilated<2, D>(a, stream);
+  if (a.kk <= 128) return launch_dilated<4, D>(a, stream);
+  return launch_dilated<8, D>(a, stream);
 }
 
 bool aligned16(const void* p) { return ((size_t)p & 15u) == 0; }
@@ -388,32 +615,6 @@ struct BlockedArgs {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// sq of candidate t of a group in f32 fused multiply-adds.  Both this and
-// sq_distance round a sum of the same non-negative terms three times (the
-// f64 sum's rounding adds 2^-53), so sq_distance is at least this times
-// (1 - 6.01 * 2^-24), less 3 * 2^-150 where the sums underflow.
-template <int D>
-__device__ __forceinline__ float approx_sq(const float (&qv)[D],
-                                           const float4 (&v)[D], int t) {
-  const float d0 = __fsub_rn(qv[0], coord<D>(v, t * D));
-  float out = __fmul_rn(d0, d0);
-#pragma unroll
-  for (int a = 1; a < D; ++a) {
-    const float da = __fsub_rn(qv[a], coord<D>(v, t * D + a));
-    out = __fmaf_rn(da, da, out);
-  }
-  return out;
-}
-
-// An approx_sq above this puts sq_distance above th: th(1 + 2^-20) +
-// 2^-126 by the bound of approx_sq; +inf (skip nothing) while th is +inf,
-// NaN or above 1e38, near the end of the f32 range, where an approx_sq
-// that overflows would not bound sq_distance.
-__device__ __forceinline__ float skip_above(float th) {
-  return th < 1e38f ? __fmaf_rn(th, 1.0f + 0x1p-20f, 0x1p-126f)
-                    : __uint_as_float(0x7f800000u);
 }
 
 // This warp's groups of one row (warp wr of wpr takes groups wr*32 + lane,
@@ -699,10 +900,12 @@ extern "C" int grid_select_dilated_f32(const void* queries,
       kk < k || kk > keep || kk > kMaxK || (!canonical && kk != k) ||
       !aligned16(dil_pts))
     return (int)cudaErrorInvalidValue;
-  Args a{(const float*)queries, (const float*)dil_pts, (const int*)dil_cand,
-         (const long long*)flat, nullptr, (float*)sq, (long long*)idx,
-         (int*)sel, q, keep, 1, 0, k, kk, 1, canonical != 0};
-  return (int)launch_d<DilatedRow>(a, d, (cudaStream_t)stream);
+  DilatedArgs a{(const float*)queries, (const float*)dil_pts,
+                (const int*)dil_cand, (const long long*)flat, (float*)sq,
+                (long long*)idx, (int*)sel, q, keep, k, kk, 1,
+                canonical != 0};
+  return (int)(d == 2 ? launch_dilated_q<2>(a, (cudaStream_t)stream)
+                      : launch_dilated_q<3>(a, (cudaStream_t)stream));
 }
 
 // queries [q, d] f32, cell_pts [rows, c, d] f32, cell_list [rows, c] int32,

@@ -124,6 +124,71 @@ def test_dilated_plain_matches_jax(layout, sorted_rows):
     assert (cand[flat] == pad).any()
 
 
+def _dilated_pad_heavy(d, w, sorted_rows, seed):
+    """Dilated rows of width ``w`` as a grid's are, many with fewer real
+    candidates than a selection takes: row r holds 0 to w members
+    (ids below 1000, distinct in a row, on a small integer lattice, the
+    rest the pad index 1000 at coordinates 1e15), ascending by id with
+    the pads last (sorted rows) or shuffled (a shard's); the first row is
+    full and the last two have no real candidate.  200 queries, most on
+    lattice points, where equal distances tie at every place, the k-th
+    included."""
+    rng = np.random.default_rng(seed)
+    n_rows = 40
+    pts = np.full((n_rows, w, d), 1e15, np.float32)
+    ids = np.full((n_rows, w), 1000, np.int32)
+    counts = rng.integers(0, w + 1, n_rows)
+    counts[0], counts[-2:] = w, 0
+    for row, m in enumerate(counts):
+        ids[row, :m] = np.sort(rng.choice(1000, m, replace=False))
+        pts[row, :m] = rng.integers(0, 4, (m, d))
+        if not sorted_rows:
+            o = rng.permutation(w)
+            ids[row], pts[row] = ids[row, o], pts[row, o]
+    q = np.where(rng.uniform(size=(200, 1)) < 0.8,
+                 rng.integers(-1, 5, (200, d)),
+                 rng.uniform(-1.0, 5.0, (200, d))).astype(np.float32)
+    flat = rng.integers(0, n_rows, 200).astype(np.int64)
+    return q, pts.reshape(n_rows, w * d), ids, flat, counts
+
+
+@pytest.mark.parametrize("sorted_rows", [True, False],
+                         ids=["sorted-rows", "unsorted-rows"])
+@pytest.mark.parametrize("d,w,k", [(2, 16, 1), (2, 16, 8), (2, 16, 16),
+                                   (3, 32, 1), (3, 32, 26), (3, 32, 32)],
+                         ids=["2d-k1", "2d-k8", "2d-kW", "3d-k1", "3d-k26",
+                              "3d-kW"])
+def test_dilated_pad_heavy_matches_jax(d, w, k, sorted_rows):
+    """Rows on which a selection's threshold could undercut its kk-th key:
+    fewer real candidates than kk (the kk-th key a pad's 1e30-scale
+    distance, pads tied at equal (sq, idx)), no real candidate at all,
+    k = 1, k = W (every slot selected) and exact ties at the k-th place.
+    The plain version equals the JAX package's ``_dilated_select``."""
+    q, pts, ids, flat, counts = _dilated_pad_heavy(d, w, sorted_rows,
+                                                   seed=10 * d + k)
+    kk = k if sorted_rows else min(k + 8, w)
+    # the rows the queries read include short ones and empty ones
+    assert (counts[flat] < kk).any() and (counts[flat] == 0).any()
+    assert (counts[flat] >= kk).any()
+    jsq, jidx, jsel = (np.asarray(a) for a in _jax_dilated(
+        jnp.asarray(q), jnp.asarray(pts), jnp.asarray(ids),
+        jnp.asarray(flat.astype(np.int32)), k=k, sorted_rows=sorted_rows))
+    tsq, tidx, tsel = gs.grid_select_dilated(_t(q), _t(pts), _t(ids),
+                                             _t(flat), k, sorted_rows)
+    np.testing.assert_array_equal(tsq.numpy(), jsq)
+    np.testing.assert_array_equal(tidx.numpy(), jidx)
+    real = jidx != 1000
+    np.testing.assert_array_equal(tsel.numpy()[real], jsel[real])
+    assert (~real).any() and np.isfinite(tsq.numpy()).all()
+    if 1 < k < w:
+        # exact ties at the k-th place, among real candidates
+        g = pts.reshape(-1, w, d)[flat]
+        diff = (q[:, None, :] - g).astype(np.float64)
+        srt = np.sort((diff * diff).sum(-1), axis=1)
+        full = counts[flat] > k
+        assert (srt[full, k - 1] == srt[full, k]).any()
+
+
 def _jax_blocked(queries, cell_pts, cell_list, flat, k):
     """The JAX package's blocked scoring and selection over given slabs
     ``flat [Q, R]``, as ``_grid_candidates`` and the ring compose it."""
@@ -436,12 +501,14 @@ def _main_order(index, n_cells, rng):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """The kernel against its plain version at the ``grid_select`` and
-    ``ring_select`` shapes: a 3D cloud's dilated rows [65536, W] k=26,
-    1024 radius-4 rows in random order, half of them masked, and 2,304
-    rows in the main path's order (256 cells beside the cloud's hole, each
-    cell's 9 centres consecutive), whole and with a quarter of them masked,
-    which cuts runs of rows that share a home cell."""
+    """The kernel against its plain version at the ``grid_select``,
+    ``shard_grid_select`` and ``ring_select`` shapes: a 3D cloud's dilated
+    rows [65536, W] k=26, a shard's unsorted rows of its 27 slabs [65536,
+    27·C] k=26 (the k + 8 slack), a 2D cloud's dilated rows [50000, W]
+    k=8, 1024 radius-4 rows in random order, half of them masked, and
+    2,304 rows in the main path's order (256 cells beside the cloud's
+    hole, each cell's 9 centres consecutive), whole and with a quarter of
+    them masked, which cuts runs of rows that share a home cell."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(0)
@@ -456,6 +523,23 @@ def test_kernel_matches_plain_on_card():
     args = (q, g["dil_pts"], g["dil_cand"], flat, 26)
     got, ref = gs.grid_select_dilated(*args), gs.grid_select_dilated_plain(
         *args)
+    nb = torch.from_numpy(tknn._grid_neighbor_table(
+        g["dims"].cpu().numpy(), g["cell_list"].shape[0] - 1)).cuda()
+    args = (q, g["cell_pts"][nb].reshape(nb.shape[0], -1).contiguous(),
+            g["cell_list"][nb].reshape(nb.shape[0], -1).contiguous(), flat,
+            26, False)
+    got += gs.grid_select_dilated(*args)
+    ref += gs.grid_select_dilated_plain(*args)
+    xy = rng.uniform([-0.5, -0.5], [1.5, 0.5], (280_000, 2))
+    xy = xy[np.linalg.norm(xy - [0.2, 0.0], axis=1) > 0.05][:250_000]
+    index2 = tknn.KNNIndex(xy, device="cuda")
+    g2 = index2._grid
+    q2 = index2._queries_f32(rng.uniform([-0.5, -0.5], [1.5, 0.5],
+                                         (50000, 2)) - index2._shift)
+    args = (q2, g2["dil_pts"], g2["dil_cand"], tknn._grid_query_margin(
+        q2, g2["origin"], g2["inv_h"], g2["dims"])[0], 8)
+    got += gs.grid_select_dilated(*args)
+    ref += gs.grid_select_dilated_plain(*args)
 
     def flat4(qs):
         return tknn._grid_neighborhood(qs, g["cell_list"].shape[0],
@@ -473,5 +557,5 @@ def test_kernel_matches_plain_on_card():
         got += gs.grid_select_blocked(*args)
         ref += gs.grid_select_blocked_plain(*args)
     torch.cuda.synchronize()
-    assert gs.launches == before + 4
+    assert gs.launches == before + 6
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
