@@ -72,6 +72,14 @@ Phases:
 - ``grid2d_metric``: a 250 000-point 2D channel cloud with a circular
   obstacle in captured-metric mode (``min_metric=0.75``): the k=8 kernel
   and the metric stopping rule; 50 263 cells after 67 iterations;
+- ``rescue_modes``: ``grid2d_metric`` under each of
+  ``SamplingTree.FULL_RESCUE``'s modes (the JAX package's
+  ``S3_TPU_FULL_RESCUE``): ``"auto"`` must turn the in-epoch full-scan
+  rescue on, ``"1"`` runs it in every window epoch from the first (its
+  full scan through ``topk_smallest``), ``"0"`` never (no query rescued);
+  each mode grows the pinned grid with its windows as graph replays, and
+  ``"1"`` and ``"0"`` again with the loop bodies eager, bitwise; each
+  mode's rescued queries, escalated cells and ``refine_total``;
 - ``cuda_vs_cpu``: one 60 000-point 3D grid-path case on the card and on
   the CPU; the (level, centre) sets and iteration counts must be identical;
 - ``export_routes``: both export routes (``ExportData.INTERP``, ``"host"``
@@ -210,7 +218,20 @@ Phases:
   ``shard_tile_merge`` (a shard's full-scan tiles and their merge) and
   ``shard_merge`` (the shards' candidates on the root), ``grid_select`` at
   ``shard_grid_select`` (the owner's scoring and selection on its
-  unsorted grid rows); each must launch in the phase.
+  unsorted grid rows); each must launch in the phase;
+- ``index_reuse``: the engine's size-1 kNN index cache across runs
+  (``engine/tree.py:_KNN_INDEX_CACHE``): the ``oat2d`` cloud swept over
+  ``min_metric`` 0.25, 0.5 and 0.75 as ``examples/s3_for_OAT15_airfoil.py``
+  sweeps it (``uniform_levels=5``, the airfoil refined to level 8), each
+  run's ``init`` and ``t_knn_build`` cold then warm and whether the index
+  was reused, the warm 0.75 run bitwise a cold one; bench workload 6's
+  single-device tree constructed cold, then warm and refined to its pinned
+  205 308 cells; the key: the ``cuda_vs_cpu`` cloud on the card and on the
+  CPU gives two indices, and ``KNNIndex.DIL_MAX_BYTES`` changed a rebuild.
+
+Every other phase builds its kNN index cold: ``run_grid`` empties the
+cache before and after each run, so no index outlives its run and the
+walls and peaks measure what they measured before the cache.
 
 Every export runs on the JAX package's default route, the host route:
 the kNN on the card, the weights in numpy, the metric in float64 and the
@@ -1576,12 +1597,24 @@ def export_summary(phase: str, exp, t: dict, prefetch: str = "consumed"
             "t_checkpoint": t["checkpoint"]}
 
 
+def clear_index_cache() -> None:
+    """Empty the engine's kNN index cache (``engine/tree.py``), so the
+    next run builds its index cold and no index outlives its run."""
+    from sparsespatialsampling_torch.engine import tree
+    tree._KNN_INDEX_CACHE.clear()
+
+
 def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
-             **kw) -> tuple:
+             warm: bool = False, **kw) -> tuple:
     """One grid generation (and export) through the public entry points.
     Returns ``(s3, export, field, walls, tree)``; ``tree`` is the engine,
-    which ``execute_grid_generation`` detaches from ``s3``."""
+    which ``execute_grid_generation`` detaches from ``s3``.  The engine's
+    index cache is emptied before and after the run unless ``warm``, so
+    a run builds its index cold and holds no index past its end, as every
+    phase measured before the cache."""
     from sparsespatialsampling_torch import SparseSpatialSampling, ExportData
+    if not warm:
+        clear_index_cache()
     t = {}
     t0 = time.perf_counter()
     s3 = SparseSpatialSampling(pts, metric, geometries, save_path=tmp,
@@ -1610,6 +1643,8 @@ def run_grid(tmp, name, pts, metric, geometries, export=None, device="cuda",
         pf["thread"].join()
     t["prefetch_build"] = pf["t_build"]
     t["checkpoint"] = s3.data_final_mesh["t_checkpoint"]
+    if not warm:
+        clear_index_cache()
     return s3, exp, field, t, tree
 
 
@@ -1867,6 +1902,72 @@ def phase_grid2d_metric(tmp: str) -> tuple:
     check_expected("grid2d_metric", out)
     out["kernel_at_call_sites"] = check_sites(tap)
     return out, counts
+
+
+RESCUE_MODES = ("auto", "1", "0")
+
+
+def phase_rescue_modes(tmp: str) -> tuple:
+    """``grid2d_metric`` under each of ``SamplingTree.FULL_RESCUE``'s modes
+    (the JAX package's ``S3_TPU_FULL_RESCUE``): "auto" (the default, which
+    turns the in-epoch full-scan rescue on at the first cell escalation,
+    as this case's does), "1" (on from the first epoch: every window's
+    epochs run the rescue's full scan) and "0" (never: every bad cell
+    takes the host escalation).  Each mode is a main-path run and must
+    grow the pinned grid, cell for cell, with the same iterations and
+    windows as graph replays; "1" and "0" run again with the loop bodies
+    eager, row for row and bitwise their graphs' grids.  Returns the
+    phase's line and each mode's launches."""
+    from sparsespatialsampling_torch.engine.tree import SamplingTree
+    xy, metric, geometries, kw = grid2d_metric_case()
+    out = {"phase": "rescue_modes", "case": "grid2d_metric",
+           "n_points": int(xy.shape[0])}
+    keys, counts_of = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for mode in RESCUE_MODES:
+            SamplingTree.FULL_RESCUE = mode
+            # "0" never rescues, and the ring leaves the full scan nothing
+            sites = (MAIN_SITES if mode == "1" else ("grid_select", RING))
+            s3, _, _, t, counts, tap, tree = main_path_run(
+                f"rescue_modes_{mode}", tmp, f"rm{mode}", xy, metric,
+                geometries, sites=sites, **kw)
+            line = {**grid_summary(s3, t), "launches": counts,
+                    "launches_per_site": dict(tap.launches),
+                    "rescue_active": bool(tree._rescue_active)}
+            check_expected("grid2d_metric", line)
+            keys[mode] = grid_key(s3)
+            counts_of[f"rescue_{mode}"] = counts
+            if mode == "auto" and not line["rescue_active"]:
+                raise AssertionError("rescue_modes: the auto run never "
+                                     "turned the rescue on")
+            if mode == "1" and not line["rescue_active"]:
+                raise AssertionError("rescue_modes: mode 1 ran without "
+                                     "the rescue")
+            if mode == "0" and (line["rescue_active"]
+                                or line["rescued_queries"]):
+                raise AssertionError("rescue_modes: mode 0 rescued "
+                                     f"{line['rescued_queries']} queries")
+            if mode != "auto":
+                line.update(compare_routes(f"rescue_modes: {mode} and auto",
+                                           keys[mode], keys["auto"]))
+                rows = grid_rows(s3)
+                SamplingTree._LOOP_GRAPHS = False
+                try:
+                    s3, _, _, te, _ = run_grid(tmp, f"rm{mode}e", xy, metric,
+                                               geometries, **kw)
+                finally:
+                    SamplingTree._LOOP_GRAPHS = True
+                line["eager_body"] = {
+                    "refine_total": te["refine"],
+                    **compare_bitwise(f"rescue_modes: {mode}, graphs and "
+                                      "eager body", rows, grid_rows(s3))}
+            out[mode] = line
+            del s3, tree
+    finally:
+        SamplingTree.FULL_RESCUE = "auto"
+    out["phase_wall_s"] = time.perf_counter() - t0
+    return out, counts_of
 
 
 def phase_full_scan() -> dict:
@@ -3677,6 +3778,148 @@ def phase_sharded(tmp: str, oat_ref: dict, cmp_rows: tuple) -> tuple:
     return out, counts
 
 
+# ``min_metric`` of each run of ``examples/s3_for_OAT15_airfoil.py:63-72``
+SWEEP = (0.25, 0.5, 0.75)
+
+
+def sweep_case():
+    """The example's sweep on the ``oat2d`` cloud: ``uniform_levels=5``,
+    the airfoil refined to level 8, ``pre_select_cells``; the geometries
+    made anew for each run, as the example makes them.  ``(points,
+    metric, geometries factory, grid arguments)``."""
+    from sparsespatialsampling_torch import (CubeGeometry,
+                                             GeometryCoordinates2D)
+    xy, metric, poly = synthetic_oat15()
+
+    def geometries():
+        return [CubeGeometry("domain", True, [-0.5, -0.5], [1.5, 0.5]),
+                GeometryCoordinates2D("airfoil", False, poly, refine=True,
+                                      min_refinement_level=8)]
+    return xy, metric, geometries, {"uniform_levels": 5,
+                                    "pre_select_cells": True}
+
+
+def reuse_line(s3, t, tree, counts, reused: bool) -> dict:
+    info = s3.data_final_mesh
+    return {"n_cells": int(info["n_cells"]),
+            "iterations": int(info["iterations"]),
+            "captured_metric": float(info["metric_per_iter"][-1]),
+            "init": t["init"], "knn_build": float(info["t_knn_build"]),
+            "refine_total": t["refine"], "epoch_core": tree._epoch_stats[
+                "core"], "index_reused": reused, "launches": counts}
+
+
+def phase_index_reuse(tmp: str) -> tuple:
+    """The engine's size-1 kNN index cache (``engine/tree.py``,
+    ``_KNN_INDEX_CACHE``) on the card: the ``oat2d`` cloud swept over
+    ``min_metric`` 0.25, 0.5 and 0.75 as the reference's example sweeps
+    it, one index for the three runs, the warm 0.75 run row for row and
+    bitwise a cold one; bench workload 6's single-device tree built cold
+    and then warm, the warm run at its pinned cells and iterations; and
+    the key's device and policy: the same cloud on the card and on the
+    CPU gives two indices, and ``KNNIndex.DIL_MAX_BYTES`` changed gives
+    a rebuild.  Every grid run is a main-path run.  The cache is empty
+    when the phase ends.  Returns the phase's line and the launches of
+    the warm runs."""
+    from sparsespatialsampling_torch import SparseSpatialSampling
+    from sparsespatialsampling_torch.ops.knn import KNNIndex
+    out, counts_of = {"phase": "index_reuse"}, {}
+    t0 = time.perf_counter()
+    try:
+        xy, metric, geometries, kw = sweep_case()
+        clear_index_cache()
+        index, runs = None, []
+        for m in SWEEP:
+            s3, _, _, t, counts, _, tree = main_path_run(
+                f"index_reuse_{m}", tmp, f"sw{m}", xy, metric, geometries(),
+                sites=("grid_select",), warm=True, min_metric=m, **kw)
+            reused = tree._knn is index
+            if reused != (index is not None):
+                raise AssertionError(f"index_reuse: min_metric {m} "
+                                     f"{'reused' if reused else 'rebuilt'} "
+                                     f"the index")
+            index = tree._knn
+            runs.append({"min_metric": m,
+                         **reuse_line(s3, t, tree, counts, reused)})
+            warm_rows = grid_rows(s3)
+            del s3, tree
+        counts_of["index_reuse_sweep"] = counts
+        out["sweep"] = runs
+        s3, _, _, t, counts, _, tree = main_path_run(
+            "index_reuse_cold", tmp, "swc", xy, metric, geometries(),
+            sites=("grid_select",), min_metric=SWEEP[-1], **kw)
+        if tree._knn is index:
+            raise AssertionError("index_reuse: the cold run reused the index")
+        out["cold"] = {"min_metric": SWEEP[-1],
+                       **reuse_line(s3, t, tree, counts, False),
+                       **compare_bitwise("index_reuse: the warm and the cold "
+                                         f"min_metric {SWEEP[-1]} runs",
+                                         warm_rows, grid_rows(s3))}
+        del s3, tree, index
+
+        # workload 6 on one device: built cold, then the warm run
+        xyz, lmetric, lgeoms, lkw = large_case()
+        clear_index_cache()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s3 = SparseSpatialSampling(xyz, lmetric, lgeoms, save_path=tmp,
+                                   save_name="lr0", device="cuda", **lkw)
+        torch.cuda.synchronize()
+        index = s3._sampling._knn
+        cold = {"init": time.perf_counter() - t1,
+                "knn_build": float(s3._sampling._times["t_knn_build"])}
+        del s3
+        s3, _, _, t, counts, _, tree = main_path_run(
+            "index_reuse_large", tmp, "lr1", xyz, lmetric, lgeoms,
+            sites=("grid_select",), warm=True, **lkw)
+        warm = {**reuse_line(s3, t, tree, counts, tree._knn is index),
+                "adaptive_route": t["adaptive_route"]}
+        if not warm["index_reused"]:
+            raise AssertionError("index_reuse: workload 6's second tree "
+                                 "rebuilt its index")
+        check_expected("large_single", warm)
+        counts_of["index_reuse_large"] = counts
+        out["large_single"] = {"n_points": int(xyz.shape[0]), "cold": cold,
+                               "warm": warm}
+        del s3, tree, index, xyz
+        clear_index_cache()
+        torch.cuda.empty_cache()
+
+        # the key: the device, then the dilated layout's budget
+        cxyz, cmetric, cgeoms, ckw = compare_case()
+
+        def built(dev):
+            s3 = SparseSpatialSampling(cxyz, cmetric, cgeoms, save_path=tmp,
+                                       save_name="key", device=dev, **ckw)
+            return s3._sampling._knn
+        card, cpu = built("cuda"), built("cpu")
+        card2, card3 = built("cuda"), built("cuda")
+        budget = KNNIndex.DIL_MAX_BYTES
+        KNNIndex.DIL_MAX_BYTES = 0
+        try:
+            blocked = built("cuda")
+        finally:
+            KNNIndex.DIL_MAX_BYTES = budget
+        dilated = built("cuda")
+        key = {"cuda_then_cpu_two_indices": cpu is not card,
+               "cpu_index_device": str(cpu.device),
+               "cuda_after_cpu_rebuilt": card2 is not card,
+               "cuda_again_reused": card3 is card2,
+               "dil_max_bytes_0_rebuilt": (blocked is not card3
+                                           and "dil_pts" not in blocked._grid),
+               "dil_max_bytes_restored_rebuilt": (
+                   dilated is not blocked and "dil_pts" in dilated._grid)}
+        if not all(v for k, v in key.items() if k != "cpu_index_device") \
+                or key["cpu_index_device"] != "cpu":
+            raise AssertionError(f"index_reuse: the key failed: {key}")
+        out["key"] = {"n_points": int(cxyz.shape[0]), **key}
+        del card, cpu, card2, card3, blocked, dilated
+    finally:
+        clear_index_cache()
+    out["phase_wall_s"] = time.perf_counter() - t0
+    return out, counts_of
+
+
 def winding_entry(cases: list, stl: dict, counts_stl: dict) -> dict:
     """The ``kernels`` line's entry of ``winding_number``: the top-level
     times are at [1024, 51552], the ``stl3d`` mesh at the JAX package's
@@ -3750,6 +3993,8 @@ def main() -> int:
         emit(grid3d)
         grid2d, counts2d = phase_grid2d_metric(tmp)
         emit(grid2d)
+        rescue, counts_rescue = phase_rescue_modes(tmp)
+        emit(rescue)
         cmp, cmp_rows, cmp_grids = phase_cuda_vs_cpu(tmp)
         emit(cmp)
         emit(phase_export_routes(cmp_grids))
@@ -3780,6 +4025,8 @@ def main() -> int:
         emit(phase_geometry_loop_vs_host(tmp, big_path))
         sharded, counts_sharded = phase_sharded(tmp, oat_ref, cmp_rows)
         emit(sharded)
+        reuse, counts_reuse = phase_index_reuse(tmp)
+        emit(reuse)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3807,7 +4054,8 @@ def main() -> int:
         return {**{f"launches_{name}": counts[kernel]
                    for name, (_, counts) in phases.items() if counts},
                 **{f"launches_{case}": c[kernel]
-                   for case, c in counts_sharded.items()}}
+                   for case, c in {**counts_sharded, **counts_rescue,
+                                   **counts_reuse}.items()}}
 
     def site_lines(kernel, keys):
         return {site: {key: c[key] for key in keys + ("launches", "run_stats")

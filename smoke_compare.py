@@ -8,8 +8,9 @@ checkout, in the order OLD, NEW, NEW, OLD, then NEW, OLD, OLD, NEW, and so
 on for ROUNDS (default 2) pairs of pairs.  A run builds that checkout's
 kernels and calls the checkout's own ``chip_smoke.py`` phases
 ``grid2d_metric``, ``oat2d``, ``cylinder3d``, ``mdl2d``, ``grid3d`` and
-``stl3d`` (each checks its pinned grid), then prints one JSON line of their ``refine_total``,
-``init`` and epoch walls.  Write an older commit into a git-ignored
+``stl3d`` (each checks its pinned grid, its kNN index built cold), then prints one JSON line of their ``refine_total``,
+``init`` and epoch walls (``SMOKE_COMPARE_PHASES=oat2d,mdl2d`` in the
+environment runs only those).  Write an older commit into a git-ignored
 directory first, e.g. ``git archive <commit> | tar -x -C
 _smoke_checkout/parent``.
 
@@ -49,9 +50,11 @@ def walls(checkout: str, route: str = None) -> dict:
     os.chdir(checkout)
     import chip_smoke
     from sparsespatialsampling_torch import _build
+    from sparsespatialsampling_torch.engine import tree
     _build.build_all()
     out = {"checkout": checkout}
-    phases = PHASES
+    phases = tuple(os.environ.get("SMOKE_COMPARE_PHASES", "").split(",")
+                   if os.environ.get("SMOKE_COMPARE_PHASES") else PHASES)
     if route is not None:
         from sparsespatialsampling_torch.engine.tree import SamplingTree
         SamplingTree.DEVICE_LOOP, SamplingTree._LOOP_GRAPHS = ROUTES[route]
@@ -59,6 +62,9 @@ def walls(checkout: str, route: str = None) -> dict:
         phases = ROUTE_PHASES
     with tempfile.TemporaryDirectory() as tmp:
         for name in phases:
+            # every phase builds its kNN index cold (a checkout older than
+            # the engine's index cache has none)
+            getattr(tree, "_KNN_INDEX_CACHE", {}).clear()
             args = (tmp,)
             if name == "stl3d":
                 args += (os.path.join(tmp, "sphere.stl"),)

@@ -30,7 +30,8 @@ iteration's temporaries live in the pool.
   (``capture_error_mode="global"``): a CUDA call of another thread during
   it fails.  The port's own worker threads (the export's prefetch,
   :func:`register_worker`) are joined before a capture, and one that is
-  alive after it raises.
+  alive after it raises; a run that takes a cached kNN index, and an
+  export that uses the engine's, join the workers that query it first.
 - The kernel wrappers count their launches in Python, which a replay does
   not run: a capture records what each counter gained during it and takes
   that back (a capture launches nothing), and every replay adds it.
@@ -51,18 +52,31 @@ _COUNTERS = {"topk_smallest": topk, "winding_number": winding,
 # why an iteration ran without a graph (``stats["eager_causes"]``)
 EAGER_CAUSES = ("warmup", "cpu", "mesh", "off")
 
-_workers = weakref.WeakSet()
+# the port's worker threads, each with the id of the object it uses
+_workers = weakref.WeakKeyDictionary()
 
 
-def register_worker(thread: threading.Thread) -> None:
+def register_worker(thread: threading.Thread, holds=None) -> None:
     """A thread of the port that may enqueue CUDA work: a capture waits
-    for it to end first."""
-    _workers.add(thread)
+    for it to end first, and so does a new user of the object ``holds``
+    (:func:`join_workers`), such as a run that takes a cached kNN index."""
+    _workers[thread] = id(holds)
 
 
-def _live_workers() -> list:
+def _live_workers(holding=None) -> list:
+    """The live workers of other threads; those that hold ``holding``
+    where it is given."""
     me = threading.current_thread()
-    return [t for t in list(_workers) if t is not me and t.is_alive()]
+    return [t for t, held in list(_workers.items())
+            if t is not me and t.is_alive()
+            and (holding is None or held == id(holding))]
+
+
+def join_workers(holding=None) -> None:
+    """Wait for the live workers of other threads: every one, or those
+    registered as holding ``holding``."""
+    for t in _live_workers(holding):
+        t.join()
 
 
 def new_stats() -> dict:
@@ -153,8 +167,7 @@ class WindowGraphs:
         main.wait_stream(side)
 
     def _capture(self, key, body, row, stats: dict) -> WindowGraph:
-        for t in _live_workers():
-            t.join()
+        join_workers()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         side = self._side_stream()

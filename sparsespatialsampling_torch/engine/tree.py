@@ -45,7 +45,8 @@ The CPU and a mesh run the bodies eagerly.
 A grid query that is not provably exact is answered again inside the
 epoch, as in the JAX package's ``fn_grid_dil``: over the blocked radius-4
 neighbourhood (the ring), then, once a cell has had to be escalated, by
-the full scan for up to 1,024 leftover rows (the rescue).  Cells still
+the full scan for up to 1,024 leftover rows (the rescue; ``FULL_RESCUE``
+runs it from the first epoch in mode "1" and never in "0").  Cells still
 ``bad`` after that go to the host escalation: a radius-4 ring epoch over
 their cells, then the full scan.  Every route emits the canonical
 ``(sq, idx)`` order with plain f32 distances, so which one answers a query
@@ -72,6 +73,10 @@ split only together with each coarser leaf that touches it by a face, an
 edge or a corner, transitively (:meth:`SamplingTree._expand_delta_level`
 on the host, ``device_loop._mdl_expand`` in the device loop).
 
+On one device the kNN index is kept between runs (``_KNN_INDEX_CACHE``,
+one entry, keyed by :func:`_index_key`), as the JAX package keeps its own:
+a sweep over one cloud builds it once.
+
 Where sharding is enabled (``parallel/mesh.sharding_enabled``: more than
 one card, or a virtual mesh), the cloud is sharded over a mesh
 (``parallel.ShardedKNNIndex``), the cell state stays on the mesh's root,
@@ -84,6 +89,7 @@ straight to the sharded full scan, and a window of the device loop ends
 on it.  Both cores emit the single-device canonical order, so a sharded
 grid equals the single-device one row for row.
 """
+import hashlib
 import logging
 from functools import partial, reduce
 from operator import or_
@@ -117,6 +123,12 @@ DIRECTIONS = {
 # equivalent lattice offsets in {0, 1}^d
 OFFSETS = {d: ((DIRECTIONS[d] + 1) // 2).astype(np.int64) for d in (2, 3)}
 
+# the size-1 reuse of the single-device kNN index across SamplingTree
+# instances (the JAX package's ``_KNN_INDEX_CACHE``): ``{"entry": (key,
+# index)}``, the key of :func:`_index_key`.  A ``min_metric`` sweep over one
+# cloud builds its index once; the entry keeps the index's device tensors
+# alive between runs until ``_KNN_INDEX_CACHE.clear()`` or the next miss
+_KNN_INDEX_CACHE: dict = {}
 # max cells per epoch pass (1 + 2^d queries each); doubled in 3D when the
 # grid capacity is <= 32
 _EPOCH_CHUNK = {2: 16384, 3: 4096}
@@ -129,8 +141,10 @@ _F32_LEVEL_CAP = 22
 _RING_PLAN = ((256, 4),)
 _RING_LOOP_ROWS = 1024
 _RING_LOOP_RADIUS = 4
-# rows the in-epoch full-scan rescue answers at most per epoch pass
+# rows the in-epoch full-scan rescue answers at most per epoch pass, and
+# at least per epoch of a window once it runs there
 _RESCUE_ROWS = 1024
+_LOOP_RESCUE_MIN = 128
 # cells per host ring epoch (the JAX package's host escalation)
 _RETRY_RING_CELLS = 256
 # geometry types whose validity outside the epochs takes the bbox
@@ -169,6 +183,20 @@ _GEO_EXITS = ("done", "window_full", "overflow", "level_cap", "mdl")
 _GEO_FALLBACKS = ("route", "level_cap", "overflow", "mdl")
 _GEO_WHY_EXIT = {WHY_OVER: "overflow", WHY_LEVEL: "level_cap",
                  WHY_MDL: "mdl"}
+
+
+def _index_key(vertices, target, device) -> tuple:
+    """The :data:`_KNN_INDEX_CACHE` key of a single-device index: the sha1
+    of the cloud's and of the metric's f64 bytes, their shapes, the
+    ``KNNIndex`` build policy and the device.  Equal keys build equal
+    indices."""
+    v64 = np.ascontiguousarray(vertices, dtype=np.float64)
+    m64 = np.ascontiguousarray(target, dtype=np.float64)
+    policy = (KNNIndex.GRID_MIN_POINTS, KNNIndex.GRID_OCCUPANCY,
+              KNNIndex.GRID_CAPACITY, KNNIndex.GRID_SHRINK_TARGET,
+              KNNIndex.GRID_CHUNK, KNNIndex.DIL_MAX_BYTES)
+    return (hashlib.sha1(v64).hexdigest(), hashlib.sha1(m64).hexdigest(),
+            v64.shape, m64.shape, policy, str(device))
 
 
 def _loop_rows(n: int, minimum: int, most: int) -> int:
@@ -269,6 +297,11 @@ class SamplingTree:
     # ``S3_TPU_GEO_MDL_LOOP``, off there by default on a measured trade-off);
     # False keeps such runs on the host's per-level walk
     GEO_MDL_LOOP = False
+    # the in-epoch full-scan rescue (the JAX package's
+    # ``S3_TPU_FULL_RESCUE``): "auto" turns it on at the first cell
+    # escalation, "1" runs it from the first epoch, "0" never (bad cells
+    # then all take the host escalation).  It moves no cell
+    FULL_RESCUE = "auto"
     # levels a window of the geometry loop may run
     _GEO_LOOP_LEVELS = 8
     # each window iteration of both loops as a replay of one captured CUDA
@@ -285,6 +318,9 @@ class SamplingTree:
                  reach_at_least: float = 0.75, pre_select: bool = False,
                  device=None):
         t_init0 = time()
+        if self.FULL_RESCUE not in ("auto", "1", "0"):
+            raise ValueError(f"SamplingTree.FULL_RESCUE is "
+                             f"{self.FULL_RESCUE!r}; use 'auto', '1' or '0'")
         self.device = resolve_device(device)
         vertices = np.asarray(vertices, dtype=np.float64)
         target = np.asarray(target, dtype=np.float64).squeeze()
@@ -330,7 +366,20 @@ class SamplingTree:
             core = self._knn.core_kind
         else:
             self._mesh = None
-            self._knn = KNNIndex(vertices, values=target, device=self.device)
+            # one index a cloud, metric, build policy and device, reused
+            # across runs (the JAX package's size-1 cache); a worker of an
+            # earlier run (the export's prefetch) may still query it
+            key = _index_key(vertices, target, self.device)
+            entry = _KNN_INDEX_CACHE.pop("entry", None)
+            if entry is not None and entry[0] == key:
+                self._knn = entry[1]
+                graphs.join_workers(self._knn)
+                self._knn.last_fallback = 0     # as a fresh build has it
+            else:
+                del entry   # the old index's memory before the new build
+                self._knn = KNNIndex(vertices, values=target,
+                                     device=self.device)
+            _KNN_INDEX_CACHE["entry"] = (key, self._knn)
             grid = self._knn._grid
             core = ("full" if grid is None else
                     "dil" if "dil_pts" in grid else "blocked")
@@ -392,9 +441,9 @@ class SamplingTree:
                                      _GEO_FALLBACKS, 0),
                                  "d2h_syncs": 0,
                                  "graphs": graphs.new_stats()}}
-        # the in-epoch full-scan rescue starts off and turns on at the
-        # first cell escalation (the JAX package's default "auto" mode)
-        self._rescue_active = False
+        # the in-epoch full-scan rescue: on from the start in mode "1"; in
+        # "auto" it turns on at the first cell escalation
+        self._rescue_active = self.FULL_RESCUE == "1"
         # the device loop: off for good once its budget outgrows the
         # epoch blocks; its state after a window (for a cheap re-entry);
         # the ring rows and rescue rows of each of a window's epochs,
@@ -728,11 +777,14 @@ class SamplingTree:
     def _maybe_enable_rescue(self) -> None:
         """At the first cell escalation, turn the in-epoch full-scan rescue
         on for every later epoch (the JAX package's default "auto" mode,
-        which spares hole-free runs its cost); never under a mesh."""
-        if not self._rescue_active and self._mesh is None:
-            logger.info("Bad cells appeared: enabling the in-epoch "
-                        "full-scan rescue for subsequent epochs.")
-            self._rescue_active = True
+        which spares hole-free runs its cost); only in that mode, never
+        under a mesh or without a grid."""
+        if (self._rescue_active or self._mesh is not None
+                or self._knn._grid is None or self.FULL_RESCUE != "auto"):
+            return
+        logger.info("Bad cells appeared: enabling the in-epoch full-scan "
+                    "rescue for subsequent epochs.")
+        self._rescue_active = True
 
     def _update_gain(self, idx: np.ndarray) -> None:
         """f64 host path of the gain (levels above 22): predict the metric
@@ -1322,10 +1374,14 @@ class SamplingTree:
 
     def _loop_ring(self) -> tuple:
         """``(ring pass sizes, rescue rows)`` of a window's epochs, sized
-        from the previous window (no ring without a grid)."""
-        plan = (tuple(_ring_plan(self._loop_ring_rows))
-                if self._knn._grid is not None else ())
-        return plan, self._loop_rescue_rows
+        from the previous window (no ring without a grid); no rescue in
+        mode "0", and one from the first window in mode "1"."""
+        if self._knn._grid is None:
+            return (), 0
+        rescue = 0 if self.FULL_RESCUE == "0" else self._loop_rescue_rows
+        if self.FULL_RESCUE == "1" and self._mesh is None:
+            rescue = max(rescue, _LOOP_RESCUE_MIN)
+        return tuple(_ring_plan(self._loop_ring_rows)), rescue
 
     def _loop_epoch(self, block: int, plan: tuple, rescue: int):
         """The epoch of a window's iterations: :meth:`_epoch_core` over
@@ -1401,7 +1457,8 @@ class SamplingTree:
             most = nbq.max(axis=0)
             self._loop_ring_rows = _loop_rows(int(most[0]), _RING_PLAN[0][0],
                                               _LOOP_RING_ROWS)
-            self._loop_rescue_rows = _loop_rows(int(most[2]), 128,
+            self._loop_rescue_rows = _loop_rows(int(most[2]),
+                                                _LOOP_RESCUE_MIN,
                                                 _RESCUE_ROWS)
         return np.nonzero(bad)[0]
 

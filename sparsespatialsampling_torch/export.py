@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .engine.graphs import join_workers
 from .io.const import GRID, CONST, FACES, CENTERS, VERTICES, DATA
 from .io.data import Datawriter
 from .ops.interpolate import (CHUNK_SIZE, add_interp_counts,
@@ -226,6 +227,9 @@ class ExportData:
                     and np.allclose(pts[probe] - reuse._shift,
                                     reuse._points_host[probe], atol=1e-6)):
                 self._knn = reuse   # the engine indexed the same cloud
+                # no query of a worker thread (a prefetch, this run's or an
+                # earlier one's on a cached index) runs beside this one's
+                join_workers(self._knn)
             else:
                 self._knn = KNNIndex(pts, device=self.device)
 

@@ -196,8 +196,9 @@ class SparseSpatialSampling:
 
         prefetch["k"] = k
         prefetch["thread"] = threading.Thread(target=build, daemon=True)
-        # a later run's CUDA graph capture waits for it
-        register_worker(prefetch["thread"])
+        # a later run's CUDA graph capture waits for it, and so does a
+        # later run or export that takes the same index
+        register_worker(prefetch["thread"], holds=knn_index)
         prefetch["thread"].start()
         return prefetch
 
