@@ -40,10 +40,10 @@ import os
 import threading
 import traceback
 import weakref
-from time import perf_counter
 
 import torch
 
+from .. import trace
 from ..ops import grid_select, topk, winding
 
 # the kernel launch counters a capture records and a replay adds
@@ -72,11 +72,14 @@ def _live_workers(holding=None) -> list:
             and (holding is None or held == id(holding))]
 
 
-def join_workers(holding=None) -> None:
+def join_workers(holding=None) -> float:
     """Wait for the live workers of other threads: every one, or those
-    registered as holding ``holding``."""
-    for t in _live_workers(holding):
-        t.join()
+    registered as holding ``holding``.  Returns the seconds waited (the
+    span ``workers.join``)."""
+    with trace.span("workers.join") as sp:
+        for t in _live_workers(holding):
+            t.join()
+    return sp.seconds
 
 
 def new_stats() -> dict:
@@ -175,9 +178,9 @@ class WindowGraphs:
         before = {n: m.launches for n, m in _COUNTERS.items()}
         graph = torch.cuda.CUDAGraph()
         mode = torch.cuda.get_sync_debug_mode()
-        t0 = perf_counter()
+        sp = trace.span("graphs.capture")
         try:
-            with torch.cuda.stream(side):
+            with sp, torch.cuda.stream(side):
                 torch.cuda.set_sync_debug_mode("error")
                 graph.capture_begin(pool=self._pool)
                 try:
@@ -204,6 +207,6 @@ class WindowGraphs:
             raise RuntimeError(f"a worker thread ran during the CUDA graph "
                                f"capture of the window {key!r}")
         stats["captures"] += 1
-        stats["capture_s"] += perf_counter() - t0
+        stats["capture_s"] += sp.seconds
         return WindowGraph(graph, out,
                            {n: c for n, c in launches.items() if c})

@@ -93,12 +93,12 @@ import hashlib
 import logging
 from functools import partial, reduce
 from operator import or_
-from time import time
 from typing import Union
 
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from ..ops import morton
 from ..parallel import ShardedKNNIndex, default_mesh, sharding_enabled
@@ -317,7 +317,6 @@ class SamplingTree:
                  relTol: Union[int, float] = 1e-3,
                  reach_at_least: float = 0.75, pre_select: bool = False,
                  device=None):
-        t_init0 = time()
         if self.FULL_RESCUE not in ("auto", "1", "0"):
             raise ValueError(f"SamplingTree.FULL_RESCUE is "
                              f"{self.FULL_RESCUE!r}; use 'auto', '1' or '0'")
@@ -357,33 +356,40 @@ class SamplingTree:
         # k-NN regressor: k = 8 (2D) / 26 (3D), inverse-distance weights
         # (reference ``s_cube.py:161-163``)
         self._n_neighbors = 8 if d == 2 else 26
-        t_knn0 = time()
+        # t_knn: the seconds of the spans ``knn.key``, ``workers.join``
+        # and ``knn.build``
         if sharding_enabled(self.device):
             # the cloud sharded over the mesh; the state on its root
             self._mesh = default_mesh(self.device)
             self.device = self._mesh.root
-            self._knn = ShardedKNNIndex(vertices, self._mesh, values=target)
+            with trace.span("knn.build", self.device,
+                            points=vertices.shape[0]) as sp:
+                self._knn = ShardedKNNIndex(vertices, self._mesh,
+                                            values=target)
+            t_knn = sp.seconds
             core = self._knn.core_kind
         else:
             self._mesh = None
             # one index a cloud, metric, build policy and device, reused
             # across runs (the JAX package's size-1 cache); a worker of an
             # earlier run (the export's prefetch) may still query it
-            key = _index_key(vertices, target, self.device)
+            with trace.span("knn.key", points=vertices.shape[0]) as sp:
+                key = _index_key(vertices, target, self.device)
+            t_knn = sp.seconds
             entry = _KNN_INDEX_CACHE.pop("entry", None)
             if entry is not None and entry[0] == key:
                 self._knn = entry[1]
-                graphs.join_workers(self._knn)
+                t_knn += graphs.join_workers(self._knn)
                 self._knn.last_fallback = 0     # as a fresh build has it
             else:
                 del entry   # the old index's memory before the new build
                 self._knn = KNNIndex(vertices, values=target,
                                      device=self.device)
+                t_knn += self._knn.build_s
             _KNN_INDEX_CACHE["entry"] = (key, self._knn)
             grid = self._knn._grid
             core = ("full" if grid is None else
                     "dil" if "dil_pts" in grid else "blocked")
-        t_knn = time() - t_knn0
 
         # flat cell arrays (append-only; index == creation order == tie-break)
         self._cap = 4096
@@ -402,11 +408,11 @@ class SamplingTree:
         self._n_cells_log = []  # leaf-count history
         self._n_cells_after_uniform = None
         self.data_final_mesh = {}
-        self._times = {"t_start_uniform": 0.0, "t_end_uniform": 0.0,
-                       "t_start_adaptive": 0.0, "t_start_geometry": 0.0,
-                       "t_end_geometry": 0.0, "t_start_renumber": 0.0,
-                       "t_end_renumber": 0.0, "t_init": 0.0,
-                       "t_knn_build": 0.0,
+        # the phases' seconds, each read off its span
+        self._times = {"t_init": 0.0, "t_knn_build": t_knn,
+                       "t_uniform": 0.0, "t_adaptive": 0.0,
+                       "t_geometry": None, "t_renumbering": 0.0,
+                       "adaptive_split": {}, "renumber_split": {},
                        "geometry_split": {"t_window": 0.0, "t_host": 0.0}}
         # epoch accounting: the epoch core (``dil``, ``blocked`` or
         # ``full`` on one device, ``shard_grid`` or ``shard_full`` on a
@@ -414,7 +420,9 @@ class SamplingTree:
         # passes; cells that left their epoch still bad, and those of them
         # the host ring left to the full scan; queries the in-epoch ring
         # and the in-epoch full-scan rescue answered; wall seconds of all
-        # epochs and of the host escalation.  The device-resident loop's
+        # epochs, the windows' included, escalations and all (the spans
+        # ``engine.epochs`` and ``engine.window``), and of the host
+        # escalation (``engine.retry``).  The device-resident loop's
         # windows: how many, the iterations they ran, why each ended,
         # the host iterations run because a window could not start one,
         # state uploads and rows scattered on re-entry, and the reads back
@@ -484,32 +492,34 @@ class SamplingTree:
                              "representing the numerical domain, was found.")
         self._lo = middle - 0.5 * self._width  # lattice origin
 
-        # f32 epoch constants on the device
+        # f32 epoch constants on the device, and the root cell
         dev = self.device
-        self._lo_t = torch.tensor(self._lo, dtype=torch.float32, device=dev)
-        self._width_t = torch.tensor(self._width, dtype=torch.float32,
-                                     device=dev)
-        self._dirs_t = torch.tensor(self._dirs, dtype=torch.float32,
-                                    device=dev)
-        self._offsets_t = torch.tensor(self._offsets, dtype=torch.float32,
-                                       device=dev)
-        self._shift_t = torch.tensor(self._knn._shift, dtype=torch.float32,
-                                     device=dev)
-        # the device loop's integer child offsets and the 3^d - 1
-        # neighbour directions of its 2:1 closure
-        self._offsets_i = torch.tensor(self._offsets, device=dev)
-        nbdirs = np.stack(np.meshgrid(*([np.array([-1, 0, 1])] * d),
-                                      indexing="ij"), axis=-1).reshape(-1, d)
-        self._nbdirs_i = torch.tensor(nbdirs[(nbdirs != 0).any(axis=1)],
-                                      dtype=torch.int64, device=dev)
+        with trace.span("engine.setup", dev) as setup:
+            self._lo_t = torch.tensor(self._lo, dtype=torch.float32,
+                                      device=dev)
+            self._width_t = torch.tensor(self._width, dtype=torch.float32,
+                                         device=dev)
+            self._dirs_t = torch.tensor(self._dirs, dtype=torch.float32,
+                                        device=dev)
+            self._offsets_t = torch.tensor(self._offsets, dtype=torch.float32,
+                                           device=dev)
+            self._shift_t = torch.tensor(self._knn._shift, dtype=torch.float32,
+                                         device=dev)
+            # the device loop's integer child offsets and the 3^d - 1
+            # neighbour directions of its 2:1 closure
+            self._offsets_i = torch.tensor(self._offsets, device=dev)
+            nbdirs = np.stack(np.meshgrid(*([np.array([-1, 0, 1])] * d),
+                                          indexing="ij"),
+                              axis=-1).reshape(-1, d)
+            self._nbdirs_i = torch.tensor(nbdirs[(nbdirs != 0).any(axis=1)],
+                                          dtype=torch.int64, device=dev)
 
-        self._target_norm = float(np.linalg.norm(target))
-        self._print_settings()
-        self._create_first_cell(middle)
-        self._gain0_t = torch.tensor(self._gain0, dtype=torch.float32,
-                                     device=dev)
-        self._times["t_knn_build"] = t_knn
-        self._times["t_init"] = time() - t_init0
+            self._target_norm = float(np.linalg.norm(target))
+            self._print_settings()
+            self._create_first_cell(middle)
+            self._gain0_t = torch.tensor(self._gain0, dtype=torch.float32,
+                                         device=dev)
+        self._times["t_init"] = t_knn + setup.seconds
 
     # ------------------------------------------------------------------ #
     # lattice helpers                                                    #
@@ -805,33 +815,38 @@ class SamplingTree:
                            * sum_delta / (2 ** d) / self._gain0)
         self._metric_arr[idx] = pred[:, 0]
 
-    def _process_new_cells(self, idx: np.ndarray) -> None:
+    def _process_new_cells(self, idx: np.ndarray) -> float:
         """Gain + metric + validity of newly created cells: fused epoch
-        passes in chunks, then the host escalation for the bad cells."""
+        passes in chunks, then the host escalation for the bad cells.
+        Returns the seconds (the span ``engine.epochs``), which
+        ``epoch_stats["wall_s"]`` sums."""
         if idx.size == 0:
-            return
-        if self._level[idx].max() > _F32_LEVEL_CAP:
-            self._update_gain(idx)
-            self._remove_invalid_cells(idx)
-            return
-        grid = self._knn._grid
-        chunk = self._chunk()
-        t0 = time()
-        st = self._epoch_stats
-        retry = []
-        for lo in range(0, idx.size, chunk):
-            part = idx[lo:lo + chunk]
-            out = self._epoch(part, "full" if grid is None else "grid")
-            st["n_calls_main"] += 1
-            # cells whose grid kNN could not be answered exactly are
-            # escalated, except those the geometry invalidated
-            bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
-            if bad.any():
-                retry.append(part[bad])
-            self._apply_epoch_out(part[~bad], out[~bad])
-        if retry:
-            self._resolve_retries(np.concatenate(retry), chunk)
-        st["wall_s"] += time() - t0
+            return 0.0
+        with trace.span("engine.epochs", self.device,
+                        cells=int(idx.size)) as sp:
+            if self._level[idx].max() > _F32_LEVEL_CAP:
+                self._update_gain(idx)
+                self._remove_invalid_cells(idx)
+            else:
+                grid = self._knn._grid
+                chunk = self._chunk()
+                st = self._epoch_stats
+                retry = []
+                mode = "full" if grid is None else "grid"
+                for lo in range(0, idx.size, chunk):
+                    part = idx[lo:lo + chunk]
+                    out = self._epoch(part, mode)
+                    st["n_calls_main"] += 1
+                    # cells whose grid kNN could not be answered exactly
+                    # are escalated, except those the geometry invalidated
+                    bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
+                    if bad.any():
+                        retry.append(part[bad])
+                    self._apply_epoch_out(part[~bad], out[~bad])
+                if retry:
+                    self._resolve_retries(np.concatenate(retry), chunk)
+        self._epoch_stats["wall_s"] += sp.seconds
+        return sp.seconds
 
     def _chunk(self) -> int:
         """Cells per epoch pass: ``_EPOCH_CHUNK``, doubled in 3D when the
@@ -847,26 +862,27 @@ class SamplingTree:
         ring epoch answers the cells' queries, 256 cells a pass, and only
         the cells it still marks bad run through the exact full scan.
         Under a mesh (no ring) every cell goes to the sharded full scan."""
-        self._maybe_enable_rescue()
-        st = self._epoch_stats
-        st["n_bad_cells"] += int(retry_idx.size)
-        t0 = time()
-        if self._mesh is None:
-            still = []
-            for lo in range(0, retry_idx.size, _RETRY_RING_CELLS):
-                part = retry_idx[lo:lo + _RETRY_RING_CELLS]
-                out = self._epoch(part, "ring")
-                st["n_calls_ring"] += 1
-                bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
-                self._apply_epoch_out(part[~bad], out[~bad])
-                still.append(part[bad])
-            retry_idx = np.concatenate(still)
-        st["full_scan_cells"] += int(retry_idx.size)
-        for lo in range(0, retry_idx.size, chunk):
-            part = retry_idx[lo:lo + chunk]
-            self._apply_epoch_out(part, self._epoch(part, "full"))
-            st["n_calls_full"] += 1
-        st["t_retry_s"] += time() - t0
+        with trace.span("engine.retry", self.device,
+                        cells=int(retry_idx.size)) as sp:
+            self._maybe_enable_rescue()
+            st = self._epoch_stats
+            st["n_bad_cells"] += int(retry_idx.size)
+            if self._mesh is None:
+                still = []
+                for lo in range(0, retry_idx.size, _RETRY_RING_CELLS):
+                    part = retry_idx[lo:lo + _RETRY_RING_CELLS]
+                    out = self._epoch(part, "ring")
+                    st["n_calls_ring"] += 1
+                    bad = (out[:, 3] > 0.5) & ~(out[:, 2] > 0.5)
+                    self._apply_epoch_out(part[~bad], out[~bad])
+                    still.append(part[bad])
+                retry_idx = np.concatenate(still)
+            st["full_scan_cells"] += int(retry_idx.size)
+            for lo in range(0, retry_idx.size, chunk):
+                part = retry_idx[lo:lo + chunk]
+                self._apply_epoch_out(part, self._epoch(part, "full"))
+                st["n_calls_full"] += 1
+        self._epoch_stats["t_retry_s"] += sp.seconds
 
     def _apply_epoch_out(self, part: np.ndarray, out: np.ndarray) -> None:
         if part.size == 0:
@@ -1062,7 +1078,6 @@ class SamplingTree:
         invalid children (their gains are never read), the last one runs
         the fused epoch."""
         logger.info("Uniform refinement phase.")
-        self._times["t_start_uniform"] = time()
         for j in range(self._min_level):
             leaves = self._alive_idx()
             logger.info(f"\tStarting iteration no. {j}, "
@@ -1074,7 +1089,6 @@ class SamplingTree:
                 self._process_new_cells(children)
             self._current_min_level += 1
         logger.info("Finished uniform refinement.")
-        self._times["t_end_uniform"] = time()
 
     def _check_stopping_criteria(self) -> bool:
         """Mirror of reference ``_check_stopping_criteria``
@@ -1192,7 +1206,6 @@ class SamplingTree:
                 return 0, "level_cap"
         iters, cap = self._window_shape(k_sel * n_ch)
         n0 = self._n_cells
-        t0 = time()
         s = self._window_state(cap, iters)
         plan, rescue = self._loop_ring()
         key = self._window_key(cap, k_max, k_sel, iters, block, plan, rescue)
@@ -1225,7 +1238,6 @@ class SamplingTree:
         exits = [name for bit, name in _WHY_EXIT.items() if why & bit]
         for name in exits or ["window_full" if ran == iters else "stop"]:
             st["window_exits"][name] += 1
-        st["wall_s"] += time() - t0
         # between windows the host changes only the escalated rows; any
         # other change (a host iteration, the geometry phase) changes the
         # cell count and so discards this state
@@ -1474,7 +1486,10 @@ class SamplingTree:
             self._bufs = {}
 
     def _refine(self) -> None:
-        self._refine_uniform()
+        with trace.span("engine.uniform", self.device) as sp:
+            self._refine_uniform()
+            sp.count(cells=int(self._alive.sum()))
+        self._times["t_uniform"] = sp.seconds
 
         iteration_count = 0
         self._n_cells_after_uniform = int(self._alive.sum())
@@ -1483,63 +1498,67 @@ class SamplingTree:
         self._n_cells_log.append(int(self._alive.sum()))
 
         logger.info("Adaptive (metric-driven) refinement phase.")
-        self._times["t_start_adaptive"] = time()
         # host iterations: select, 2:1 expansion, split, epochs; windows of
         # the device-resident loop: their wall and iterations
         asplit = {"t_select": 0.0, "t_expand": 0.0, "t_split": 0.0,
-                  "t_epoch": 0.0, "t_window": 0.0, "n_iter": 0,
-                  "n_window_iter": 0}
-        while self._check_stopping_criteria():
-            if self._adaptive_device_eligible():
-                t0 = time()
-                ran, cause = self._device_adaptive_call()
-                asplit["t_window"] += time() - t0
-                if ran:
-                    iteration_count += ran
-                    asplit["n_iter"] += ran
-                    asplit["n_window_iter"] += ran
-                    logger.info(f"\tDevice loop ran {ran} iterations -> "
-                                f"N_cells = {int(self._alive.sum())}")
-                    continue
-                # the window could not start an iteration: one on the host
-                self._epoch_stats["host_fallback"][cause] += 1
-            elif self.DEVICE_LOOP and self._device_loop_disabled:
-                self._epoch_stats["host_fallback"]["disabled"] += 1
-            if self._n_cells_max is None:
-                logger.info(f"\tStarting iteration no. {iteration_count}, "
-                            f"captured metric: "
-                            f"{round(self._metric[-1] * 100, 2)} %, "
-                            f"N_cells = {int(self._alive.sum())}")
-            else:
-                logger.info(f"\tStarting iteration no. {iteration_count}, "
-                            f"N_cells = {int(self._alive.sum())}")
-            if len(self._metric) >= 2:
-                self._compute_n_cells_per_iter()
-            t0 = time()
-            selected = self._select_top_k(min(self._cells_per_iter,
-                                              self._n_cells))
-            t1 = time()
-            if self._max_delta_level:
-                selected = self._expand_delta_level(selected)
-            t2 = time()
-            children = self._split(selected)
-            t3 = time()
-            self._process_new_cells(children)
-            t4 = time()
-            asplit["t_select"] += t1 - t0
-            asplit["t_expand"] += t2 - t1
-            asplit["t_split"] += t3 - t2
-            asplit["t_epoch"] += t4 - t3
-            asplit["n_iter"] += 1
-            if self._n_cells_max is None:
-                self._captured_metric()
-            iteration_count += 1
-            self._n_cells_log.append(int(self._alive.sum()))
+                  "t_epoch": 0.0, "t_window": 0.0, "n_iter": 0}
+        with trace.span("engine.adaptive", self.device) as adaptive:
+            while self._check_stopping_criteria():
+                if self._adaptive_device_eligible():
+                    with trace.span("engine.window", self.device) as sp:
+                        ran, cause = self._device_adaptive_call()
+                        sp.count(iterations=ran)
+                    asplit["t_window"] += sp.seconds
+                    self._epoch_stats["wall_s"] += sp.seconds
+                    if ran:
+                        iteration_count += ran
+                        asplit["n_iter"] += ran
+                        logger.info(f"\tDevice loop ran {ran} iterations "
+                                    f"-> N_cells = {int(self._alive.sum())}")
+                        continue
+                    # the window could not start an iteration: one on the
+                    # host
+                    self._epoch_stats["host_fallback"][cause] += 1
+                elif self.DEVICE_LOOP and self._device_loop_disabled:
+                    self._epoch_stats["host_fallback"]["disabled"] += 1
+                with trace.span("engine.iteration", self.device):
+                    if self._n_cells_max is None:
+                        logger.info(f"\tStarting iteration no. "
+                                    f"{iteration_count}, captured metric: "
+                                    f"{round(self._metric[-1] * 100, 2)} %, "
+                                    f"N_cells = {int(self._alive.sum())}")
+                    else:
+                        logger.info(f"\tStarting iteration no. "
+                                    f"{iteration_count}, "
+                                    f"N_cells = {int(self._alive.sum())}")
+                    if len(self._metric) >= 2:
+                        self._compute_n_cells_per_iter()
+                    with trace.span("engine.select") as sp:
+                        selected = self._select_top_k(
+                            min(self._cells_per_iter, self._n_cells))
+                    asplit["t_select"] += sp.seconds
+                    if self._max_delta_level:
+                        with trace.span("engine.expand") as sp:
+                            selected = self._expand_delta_level(selected)
+                        asplit["t_expand"] += sp.seconds
+                    with trace.span("engine.split",
+                                    cells=int(selected.size)) as sp:
+                        children = self._split(selected)
+                    asplit["t_split"] += sp.seconds
+                    asplit["t_epoch"] += self._process_new_cells(children)
+                    asplit["n_iter"] += 1
+                    if self._n_cells_max is None:
+                        self._captured_metric()
+                iteration_count += 1
+                self._n_cells_log.append(int(self._alive.sum()))
 
-        if self._n_cells_max is not None:
-            self._captured_metric()
+            if self._n_cells_max is not None:
+                self._captured_metric()
+            adaptive.count(cells=int(self._alive.sum()),
+                           iterations=iteration_count)
         self._dev_state = None
         self._times["adaptive_split"] = asplit
+        self._times["t_adaptive"] = adaptive.seconds
         logger.info("Finished metric-based refinement.")
 
         self._refine_geometries()
@@ -1560,9 +1579,10 @@ class SamplingTree:
     def _refine_geometries(self) -> None:
         geometries = [g for g in self._geometry if g.refine]
         if geometries:
-            self._times["t_start_geometry"] = time()
-            self._execute_geometry_refinement(geometries)
-            self._times["t_end_geometry"] = time()
+            with trace.span("engine.geometry", self.device) as sp:
+                self._execute_geometry_refinement(geometries)
+                sp.count(cells=int(self._alive.sum()))
+            self._times["t_geometry"] = sp.seconds
 
     def _execute_geometry_refinement(self, geometries: list) -> None:
         """Refine near geometry surfaces level by level up to the target
@@ -1598,10 +1618,11 @@ class SamplingTree:
             while gmax > gmin and surface.size:
                 cause = "route"
                 if loop_ok and gmin + 1 <= _F32_LEVEL_CAP:
-                    t0 = time()
-                    surface, gmin2, cause = self._device_geometry_call(
-                        g, surface, gmin, gmax)
-                    split["t_window"] += time() - t0
+                    with trace.span("engine.geometry_window",
+                                    self.device) as sp:
+                        surface, gmin2, cause = self._device_geometry_call(
+                            g, surface, gmin, gmax)
+                    split["t_window"] += sp.seconds
                     if gmin2 > gmin:
                         logger.info(f"\tDevice loop refined levels "
                                     f"{gmin + 1}..{gmin2} / {gmax}.")
@@ -1609,36 +1630,38 @@ class SamplingTree:
                         continue
                 elif loop_ok:
                     cause = "level_cap"
-                t0 = time()
-                logger.info(f"\tRefining level {gmin + 1} / {gmax}.")
-                to_refine = surface[self._level[surface] < gmax]
-                if self._max_delta_level:
-                    # the 2:1 check covers every surface cell, those
-                    # already at the target level too, and refines a
-                    # coarser neighbour it finds even when that neighbour
-                    # is itself a surface cell at the target level
-                    # (reference s_cube.py:826-848)
-                    lookup = self._make_nb_lookup()
-                    direct = self._coarser_of(surface, lookup)
-                    if direct.size:
-                        to_refine = np.union1d(
-                            to_refine,
-                            self._expand_delta_level(direct, lookup))
-                if to_refine.size == 0:
-                    break
-                route["host_levels"] += 1
-                route["host_fallback"][cause] += 1
-                children = self._split(to_refine)
-                # children invalid w.r.t. THIS geometry only are removed
-                # (reference s_cube.py:850); the surviving children near
-                # the surface are the next level's surface set
-                invalid, surf = self._geo_refine_flags(g, children)
-                surface = children[~invalid & surf]
-                dead = children[invalid]
-                self._alive[dead] = False
-                self._gain[dead] = 0.0
-                gmin += 1
-                split["t_host"] += time() - t0
+                with trace.span("engine.geometry_level",
+                                self.device) as sp:
+                    logger.info(f"\tRefining level {gmin + 1} / {gmax}.")
+                    to_refine = surface[self._level[surface] < gmax]
+                    if self._max_delta_level:
+                        # the 2:1 check covers every surface cell, those
+                        # already at the target level too, and refines a
+                        # coarser neighbour it finds even when that
+                        # neighbour is itself a surface cell at the target
+                        # level (reference s_cube.py:826-848)
+                        lookup = self._make_nb_lookup()
+                        direct = self._coarser_of(surface, lookup)
+                        if direct.size:
+                            to_refine = np.union1d(
+                                to_refine,
+                                self._expand_delta_level(direct, lookup))
+                    if to_refine.size == 0:
+                        break
+                    route["host_levels"] += 1
+                    route["host_fallback"][cause] += 1
+                    children = self._split(to_refine)
+                    # children invalid w.r.t. THIS geometry only are
+                    # removed (reference s_cube.py:850); the surviving
+                    # children near the surface are the next level's
+                    # surface set
+                    invalid, surf = self._geo_refine_flags(g, children)
+                    surface = children[~invalid & surf]
+                    dead = children[invalid]
+                    self._alive[dead] = False
+                    self._gain[dead] = 0.0
+                    gmin += 1
+                split["t_host"] += sp.seconds
         self._current_max_level = int(self._level[self._alive_idx()].max())
         logger.info("Finished geometry refinement.")
 
@@ -1805,38 +1828,40 @@ class SamplingTree:
         on the depth-D node lattice), so one ``np.unique`` deduplicates the
         nodes and numbers the faces."""
         logger.info("Assembling the final mesh (node dedup + renumbering).")
-        self._times["t_start_renumber"] = time()
-        alive = self._alive_idx()
-        coords = self._coords[alive]
-        level = self._level[alive]
-        depth = int(level.max())
-        if depth > self._max_depth:
-            raise ValueError(f"Refinement depth {depth} exceeds the lattice "
-                             f"limit {self._max_depth}.")
-        split = {"t_keys": time()}
-        keys = morton.node_keys(coords, level, self._offsets, depth)
-        split["t_unique"] = time()
-        unique_keys, inverse = np.unique(keys.ravel(), return_inverse=True)
-        split["t_emit"] = time()
-        idx_dtype = (np.int32 if unique_keys.size < np.iinfo(np.int32).max
-                     else np.int64)
-        self.face_ids = inverse.reshape(keys.shape).astype(idx_dtype)
-        node_coords = morton.decode_node_keys(unique_keys, self._n_dimensions,
-                                              depth)
-        h = self._width / float(1 << depth)
-        self.all_nodes = self._lo + node_coords.astype(np.float64) * h
-        self.all_centers = self._centers_of(coords, level)
-        self.all_levels = level.astype(np.int64)[:, None]
-        self._times["t_end_renumber"] = time()
+        with trace.span("engine.renumber") as total:
+            with trace.span("renumber.pre") as pre:
+                alive = self._alive_idx()
+                coords = self._coords[alive]
+                level = self._level[alive]
+                depth = int(level.max())
+                if depth > self._max_depth:
+                    raise ValueError(f"Refinement depth {depth} exceeds the "
+                                     f"lattice limit {self._max_depth}.")
+            with trace.span("renumber.keys") as keys_sp:
+                keys = morton.node_keys(coords, level, self._offsets, depth)
+            with trace.span("renumber.unique") as unique:
+                unique_keys, inverse = np.unique(keys.ravel(),
+                                                 return_inverse=True)
+            with trace.span("renumber.emit", cells=int(alive.size)) as emit:
+                idx_dtype = (np.int32
+                             if unique_keys.size < np.iinfo(np.int32).max
+                             else np.int64)
+                self.face_ids = inverse.reshape(keys.shape).astype(idx_dtype)
+                node_coords = morton.decode_node_keys(
+                    unique_keys, self._n_dimensions, depth)
+                h = self._width / float(1 << depth)
+                self.all_nodes = self._lo + node_coords.astype(np.float64) * h
+                self.all_centers = self._centers_of(coords, level)
+                self.all_levels = level.astype(np.int64)[:, None]
+        self._times["t_renumbering"] = total.seconds
         # seconds of the renumbering's parts (the JAX package's keys): pre
         # = the alive cells, keys = the corner keys, unique = the node
         # dedup sort, emit = face ids and the f64 nodes and centres
-        ts, te = self._times["t_start_renumber"], self._times["t_end_renumber"]
         self._times["renumber_split"] = {
-            "t_keys": round(split["t_unique"] - split["t_keys"], 4),
-            "t_unique": round(split["t_emit"] - split["t_unique"], 4),
-            "t_emit": round(te - split["t_emit"], 4),
-            "t_pre": round(split["t_keys"] - ts, 4)}
+            "t_keys": round(keys_sp.seconds, 4),
+            "t_unique": round(unique.seconds, 4),
+            "t_emit": round(emit.seconds, 4),
+            "t_pre": round(pre.seconds, 4)}
 
     def _create_mesh_info(self, counter: int) -> None:
         """Mesh statistics + phase timings (reference ``_create_mesh_info``,
@@ -1851,21 +1876,16 @@ class SamplingTree:
         info["max_level"] = self._current_max_level
         info["metric_per_iter"] = self._metric
         info["cells_per_iter"] = self._n_cells_log
-        info["t_total"] = t["t_end_renumber"] - t["t_start_uniform"]
-        info["t_init"] = t["t_init"]
-        info["t_knn_build"] = t["t_knn_build"]
+        # the phases' seconds, each its span's; the refinement's the sum
+        for key in ("t_init", "t_knn_build", "t_uniform", "t_adaptive",
+                    "t_geometry", "t_renumbering"):
+            info[key] = t[key]
+        info["t_total"] = (t["t_uniform"] + t["t_adaptive"]
+                           + (t["t_geometry"] or 0.0) + t["t_renumbering"])
         info["epoch_stats"] = dict(self._epoch_stats)
-        info["t_uniform"] = t["t_end_uniform"] - t["t_start_uniform"]
-        info["t_renumbering"] = t["t_end_renumber"] - t["t_start_renumber"]
-        info["renumber_split"] = t.get("renumber_split", {})
-        info["adaptive_split"] = t.get("adaptive_split", {})
+        info["renumber_split"] = t["renumber_split"]
+        info["adaptive_split"] = t["adaptive_split"]
         info["geometry_split"] = dict(t["geometry_split"])
-        if t["t_end_geometry"] > 0:
-            info["t_geometry"] = t["t_end_geometry"] - t["t_start_geometry"]
-            info["t_adaptive"] = t["t_start_geometry"] - t["t_start_adaptive"]
-        else:
-            info["t_geometry"] = None
-            info["t_adaptive"] = t["t_start_renumber"] - t["t_start_adaptive"]
 
     # ------------------------------------------------------------------ #
     # introspection                                                      #

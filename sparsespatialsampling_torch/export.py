@@ -27,12 +27,12 @@ sums it), on either route.  The HDF5/XDMF files have the JAX package's
 """
 import logging
 from os import path
-from time import perf_counter, time
 from typing import Union
 
 import numpy as np
 import torch
 
+from . import trace
 from ._device import resolve_device
 from .engine.graphs import join_workers
 from .io.const import GRID, CONST, FACES, CENTERS, VERTICES, DATA
@@ -114,7 +114,10 @@ class ExportData:
         self._interpolated_metric = append_existing
         self._initialized_weights = False
         self._n_snapshots_total = None
-        self._t_start = time()
+        # the spans' run: that of the grid's object
+        self._trace_run = getattr(s_cube, "_trace_run", None)
+        # seconds of the current field's export spans, for the log
+        self._field_s = 0.0
 
         if append_existing:
             logger.info(f"Opening existing file "
@@ -143,7 +146,10 @@ class ExportData:
         self._cache_device = False
         self._w_centers = self._idx_centers = self._op_centers = None
         self._w_vertices = self._idx_vertices = self._op_vertices = None
-        # cumulative seconds across export() calls: t_weights (the weight
+        # cumulative seconds across export() calls, each its spans' (of
+        # ``interpolate``: ``export.weights``, ``export.upload``,
+        # ``export.metric``, ``export.product`` less its
+        # ``export.readback``; ``export.write``): t_weights (the weight
         # cache), t_upload (snapshots to the device), t_metric, t_kernel
         # (the contractions), t_readback (results to the host), t_h5;
         # interp_bytes and interp_outputs count the contractions' traffic
@@ -187,9 +193,10 @@ class ExportData:
                                        if n_snapshots_total is not None
                                        else n_batch)
         self._snapshot_counter += n_batch
-        t0 = time()
-        self._write_data_to_hdf5()
-        self.timings["t_h5"] += time() - t0
+        with trace.span("export.write", run=self._trace_run) as sp:
+            self._write_data_to_hdf5()
+        self.timings["t_h5"] += sp.seconds
+        self._field_s += sp.seconds
 
     @property
     def write_times(self) -> list:
@@ -249,7 +256,8 @@ class ExportData:
             pf = self._prefetch
             if (pf is not None and pf["thread"] is not None
                     and self._knn is self._engine_knn and pf["k"] == k):
-                pf["thread"].join()
+                with trace.span("workers.join"):
+                    pf["thread"].join()
                 got = pf["data"].pop("centers", None)
                 pf["thread"] = None
             if got is not None and got[0].shape == (self._centers.shape[0],
@@ -288,85 +296,93 @@ class ExportData:
             :meth:`export`; the host route makes one call)
         :return: the field at the cell centres, ``[M, C, S]`` float32
         """
-        chunk_size = CHUNK_SIZE if chunk_size is None else int(chunk_size)
-        if chunk_size < 1:
-            raise ValueError(f"chunk_size must be at least 1, got "
-                             f"{chunk_size}")
-        data = np.asarray(data)
-        if data.ndim < 2:
-            raise ValueError(
-                f"'data' is {data.ndim}-dimensional but must be 3-D: "
-                "[N_cells, N_components, N_snapshots] (use N_components=1 "
-                "for scalar fields).")
-        if data.ndim == 2:
-            logger.warning("2-D 'data' given — treating it as a scalar "
-                           "field and inserting a component axis: "
-                           "[N_cells, N_snapshots] -> "
-                           "[N_cells, 1, N_snapshots].")
-            data = data[:, None, :]
+        with trace.span("export.interpolate", run=self._trace_run) as total:
+            chunk_size = CHUNK_SIZE if chunk_size is None else int(chunk_size)
+            if chunk_size < 1:
+                raise ValueError(f"chunk_size must be at least 1, got "
+                                 f"{chunk_size}")
+            data = np.asarray(data)
+            if data.ndim < 2:
+                raise ValueError(
+                    f"'data' is {data.ndim}-dimensional but must be 3-D: "
+                    "[N_cells, N_components, N_snapshots] (use N_components=1 "
+                    "for scalar fields).")
+            if data.ndim == 2:
+                logger.warning("2-D 'data' given — treating it as a scalar "
+                               "field and inserting a component axis: "
+                               "[N_cells, N_snapshots] -> "
+                               "[N_cells, 1, N_snapshots].")
+                data = data[:, None, :]
 
-        # the device route ships the snapshots before the weight build, as
-        # the JAX package does
-        if self._interp_path == "device" and not sharding_enabled(
-                self.device):
-            t0 = perf_counter()
-            data = torch.from_numpy(np.ascontiguousarray(
-                data, dtype=np.float32)).to(self.device)
-            self.timings["t_upload"] += perf_counter() - t0
+            # the device route ships the snapshots before the weight build, as
+            # the JAX package does
+            if self._interp_path == "device" and not sharding_enabled(
+                    self.device):
+                with trace.span("export.upload", self.device) as sp:
+                    host = np.ascontiguousarray(data, dtype=np.float32)
+                    data = torch.from_numpy(host).to(self.device)
+                    sp.count(bytes=host.nbytes)
+                self.timings["t_upload"] += sp.seconds
 
-        if not self._initialized_weights:
-            t0 = time()
-            self._build_knn_cache(coordinates)
-            self.timings["t_weights"] += time() - t0
+            if not self._initialized_weights:
+                with trace.span("export.weights", self.device) as sp:
+                    self._build_knn_cache(coordinates)
+                self.timings["t_weights"] += sp.seconds
 
-        if not self._interpolated_metric:
-            t0 = time()
-            if self._cache_device:
-                # float32 on the device, as the JAX package's device route
-                metric = torch.as_tensor(self._metric[:, None, None],
-                                         dtype=torch.float32,
-                                         device=self.device)
-                self._metric = interpolate_data(
-                    self._w_centers, self._idx_centers, metric,
-                    chunk_size)[:, 0, 0].cpu().numpy()
-            else:
-                # float64 on the host, as the JAX package's host route
-                self._metric = (self._w_centers
-                                * self._metric[self._idx_centers]).sum(axis=1)
-            self._interpolated_metric = True
-            self.timings["t_metric"] += time() - t0
+            if not self._interpolated_metric:
+                with trace.span("export.metric", self.device) as sp:
+                    if self._cache_device:
+                        # float32 on the device, as the JAX package's device
+                        # route
+                        metric = torch.as_tensor(self._metric[:, None, None],
+                                                 dtype=torch.float32,
+                                                 device=self.device)
+                        self._metric = interpolate_data(
+                            self._w_centers, self._idx_centers, metric,
+                            chunk_size)[:, 0, 0].cpu().numpy()
+                    else:
+                        # float64 on the host, as the JAX package's host route
+                        self._metric = (self._w_centers * self._metric[
+                            self._idx_centers]).sum(axis=1)
+                self._interpolated_metric = True
+                self.timings["t_metric"] += sp.seconds
 
-        self._interpolated_fields.centers = self._interpolate(
-            self._w_centers, self._idx_centers, self._op_centers, data,
-            chunk_size)
-        if self._interpolate_at_vertices:
-            self._interpolated_fields.vertices = self._interpolate(
-                self._w_vertices, self._idx_vertices, self._op_vertices,
-                data, chunk_size)
+            self._interpolated_fields.centers = self._interpolate(
+                self._w_centers, self._idx_centers, self._op_centers, data,
+                chunk_size)
+            if self._interpolate_at_vertices:
+                self._interpolated_fields.vertices = self._interpolate(
+                    self._w_vertices, self._idx_vertices, self._op_vertices,
+                    data, chunk_size)
+        self._field_s += total.seconds
         return self._interpolated_fields.centers
 
     def _interpolate(self, w, idx, op, data, chunk_size: int) -> np.ndarray:
-        """One interpolation: on a mesh with the cells sharded, on the
-        device (the device route), or as one CSR product on the host (the
-        JAX package's ``_interpolate``)."""
-        if self._mesh is not None:
-            t0 = perf_counter()
-            out = sharded_interpolate(w, idx, data, self._mesh, chunk_size)
-            self.timings["t_kernel"] += perf_counter() - t0
-            return out
-        if self._cache_device:
-            t0 = perf_counter()
-            out = interpolate_data(w, idx, data, chunk_size)
-            if out.is_cuda:
-                torch.cuda.synchronize(out.device)
-            t1 = perf_counter()
-            out = out.cpu().numpy()
-            self.timings["t_kernel"] += t1 - t0
-            self.timings["t_readback"] += perf_counter() - t1
-            add_interp_counts(self.timings, w.shape[0], w.shape[1],
-                              data.shape[1] * data.shape[2])
-            return out
-        return interpolate_host(w, idx, data, timings=self.timings, op=op)
+        """One interpolation, the span ``export.product``: on a mesh with
+        the cells sharded, on the device (the device route, whose read
+        back is the child span ``export.readback``), or as one CSR product
+        on the host (the JAX package's ``_interpolate``)."""
+        readback = None
+        with trace.span("export.product", self.device, cells=w.shape[0],
+                        snapshots=data.shape[-1]) as sp:
+            if self._mesh is not None:
+                out = sharded_interpolate(w, idx, data, self._mesh,
+                                          chunk_size)
+            elif self._cache_device:
+                out = interpolate_data(w, idx, data, chunk_size)
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+                with trace.span("export.readback") as readback:
+                    out = out.cpu().numpy()
+                add_interp_counts(self.timings, w.shape[0], w.shape[1],
+                                  data.shape[1] * data.shape[2])
+            else:
+                out = interpolate_host(w, idx, data, timings=self.timings,
+                                       op=op)
+        t_readback = 0.0 if readback is None else readback.seconds
+        self.timings["t_kernel"] += sp.seconds - t_readback
+        self.timings["t_readback"] += t_readback
+        return out
 
     # ------------------------------------------------------------------ #
     # HDF5 output                                                        #
@@ -425,5 +441,5 @@ class ExportData:
             if self._new_file:
                 self._initialized_hdf5 = False
             logger.info(f"Field {self._field_name} exported after "
-                        f"{round(time() - self._t_start, 3)}s.")
-            self._t_start = time()
+                        f"{round(self._field_s, 3)}s.")
+            self._field_s = 0.0

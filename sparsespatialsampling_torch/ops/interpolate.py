@@ -13,8 +13,6 @@ Port of the JAX package's ``ops/interpolate.py``.  Two contractions of
   One gather of ``[M, C, S]`` per neighbour keeps the temporary at the
   size of the output.
 """
-from time import perf_counter
-
 import numpy as np
 import torch
 
@@ -73,13 +71,12 @@ def interpolate_host(w, idx, data, chunk_size: int = 16384,
     numpy weight cache, as one CSR product → ``[M, C, S]`` f32.
 
     :param chunk_size: accepted for the JAX package's signature; unused
-    :param timings: accumulates ``t_kernel`` (seconds), ``interp_bytes``
-        (the ``[M, k, C, S]`` gather plus the ``[M, C, S]`` result, f32)
-        and ``interp_outputs`` (``M·C·S``)
+    :param timings: accumulates ``interp_bytes`` (the ``[M, k, C, S]``
+        gather plus the ``[M, C, S]`` result, f32) and ``interp_outputs``
+        (``M·C·S``); ``ExportData`` times the call (``t_kernel``)
     :param op: a prebuilt :func:`build_host_operator` matrix (built from
         ``w`` and ``idx`` when None)
     """
-    t0 = perf_counter()
     data = np.asarray(data, dtype=np.float32)
     if op is None:
         op = build_host_operator(w, idx, data.shape[0])
@@ -87,8 +84,6 @@ def interpolate_host(w, idx, data, chunk_size: int = 16384,
     n = data.shape[0]
     out = (op @ data.reshape(n, -1)).reshape((m,) + data.shape[1:])
     if timings is not None:
-        timings["t_kernel"] = (timings.get("t_kernel", 0.0)
-                               + perf_counter() - t0)
         add_interp_counts(timings, m, k, data.shape[1] * data.shape[2])
     return out
 

@@ -44,6 +44,7 @@ capacity.
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from . import grid_select as _gs
 from . import morton
@@ -541,44 +542,61 @@ class KNNIndex:
 
     def __init__(self, points, values=None, device=None,
                  tile_n: int = DEFAULT_TILE_N, tile_q: int = DEFAULT_TILE_Q):
+        """The build is the span ``knn.build`` (its seconds: ``build_s``),
+        with the children ``knn.order`` (the centring and the Morton
+        order), ``knn.upload`` (the points to the device, and after the
+        grid the values), and on the grid path ``knn.plan`` (the host's
+        bucket-grid plan) and ``knn.layout`` (the blocked and dilated
+        layouts, on the device)."""
         self.device = resolve_device(device)
         points = np.asarray(points)
         self.n_points, self.n_dim = points.shape
         self._tile_q = tile_q
         self._tile_n = min(tile_n, _round_up(self.n_points, 128))
+        with trace.span("knn.build", self.device,
+                        points=self.n_points) as sp:
+            with trace.span("knn.order"):
+                # centring improves the f32 accuracy of the expanded score
+                self._shift = points.mean(axis=0)
+                centered = points - self._shift
+                # Morton order: grid cells hold contiguous index ranges and
+                # the full-scan tiles stay spatially coherent; ``_perm``
+                # maps sorted position → original point index
+                self._perm = _morton_order(centered)
+                sorted_pts = centered[self._perm]
 
-        # centring improves the f32 accuracy of the expanded score
-        self._shift = points.mean(axis=0)
-        centered = points - self._shift
-        # Morton order: grid cells hold contiguous index ranges and the
-        # full-scan tiles stay spatially coherent; ``_perm`` maps sorted
-        # position → original point index
-        self._perm = _morton_order(centered)
-        sorted_pts = centered[self._perm]
+            with trace.span("knn.upload", self.device) as up:
+                # +1 guarantees a pad row: the index ``n_points`` always
+                # exists
+                n_pad = _round_up(self.n_points + 1, self._tile_n)
+                pts = np.full((n_pad, self.n_dim), 1e30, dtype=np.float32)
+                pts[:self.n_points] = sorted_pts
+                sq = np.full((n_pad,), np.inf, dtype=np.float32)
+                sq[:self.n_points] = (sorted_pts.astype(np.float64)
+                                      ** 2).sum(axis=1)
+                perm = np.concatenate([self._perm, np.zeros(1, np.int64)])
+                self._points = torch.from_numpy(pts).to(self.device)
+                self._points_sq = torch.from_numpy(sq).to(self.device)
+                self._points_host = centered  # predict_host's exact f64 pass
+                self._pad_idx = self.n_points
+                self._perm_dev = torch.from_numpy(perm).to(self.device)
+                up.count(bytes=pts.nbytes + sq.nbytes + perm.nbytes)
 
-        # +1 guarantees a pad row: the index ``n_points`` always exists
-        n_pad = _round_up(self.n_points + 1, self._tile_n)
-        pts = np.full((n_pad, self.n_dim), 1e30, dtype=np.float32)
-        pts[:self.n_points] = sorted_pts
-        sq = np.full((n_pad,), np.inf, dtype=np.float32)
-        sq[:self.n_points] = (sorted_pts.astype(np.float64) ** 2).sum(axis=1)
-        self._points = torch.from_numpy(pts).to(self.device)
-        self._points_sq = torch.from_numpy(sq).to(self.device)
-        self._points_host = centered      # predict_host's exact f64 pass
-        self._pad_idx = self.n_points
-        self._perm_dev = torch.from_numpy(
-            np.concatenate([self._perm, np.zeros(1, np.int64)])).to(
-                self.device)
+            self._grid = None
+            # exact-fallback row count of the most recent grid query
+            self.last_fallback = 0
+            if self.n_points >= self.GRID_MIN_POINTS and self.n_dim in (2, 3):
+                self._build_grid(sorted_pts)
 
-        self._grid = None
-        # exact-fallback row count of the most recent grid query
-        self.last_fallback = 0
-        if self.n_points >= self.GRID_MIN_POINTS and self.n_dim in (2, 3):
-            self._build_grid(sorted_pts)
-
-        self._values = None
-        if values is not None:
-            self.set_values(values)
+            # the values after the grid, whose build transients they would
+            # otherwise add to
+            self._values = None
+            if values is not None:
+                with trace.span("knn.upload", self.device) as up:
+                    self.set_values(values)
+                    up.count(bytes=self._values.element_size()
+                             * self._values.nelement())
+        self.build_s = sp.seconds
 
     def _build_grid(self, sorted_pts: np.ndarray) -> None:
         """Bucket grid over the sorted cloud: the blocked layout (each
@@ -586,42 +604,47 @@ class KNNIndex:
         ``DIL_MAX_BYTES``, the dilated layout: each cell's row lists the
         members of its whole 3^d neighbourhood, ascending by index,
         compacted to the widest occupied row (a multiple of 64, at least
-        128)."""
+        128).  The host's plan is the span ``knn.plan``, the layouts on
+        the device ``knn.layout``."""
         dev = self.device
         d = self.n_dim
-        plan = _plan_grid(sorted_pts, self.n_points, self.GRID_OCCUPANCY,
-                          self.GRID_CAPACITY, self.GRID_SHRINK_TARGET)
-        C, n_cells = plan["C"], plan["n_cells"]
+        with trace.span("knn.plan") as sp:
+            plan = _plan_grid(sorted_pts, self.n_points, self.GRID_OCCUPANCY,
+                              self.GRID_CAPACITY, self.GRID_SHRINK_TARGET)
+            C, n_cells = plan["C"], plan["n_cells"]
+            occ = _max_dilated_occupancy(plan["counts"], plan["dims"], C)
+            sp.count(cells=n_cells)
         n_rows = n_cells + 1
-        cells, pos, order = _fill_from_flat(
-            torch.from_numpy(plan["flat_ids"]).to(dev))
-        cell_list = _cell_list(cells, pos, order, n_rows, C, self._pad_idx)
-        # pad slots read the 1e30 pad row, clamped to 1e15 so squared pad
-        # distances stay finite (~3e30) yet never rank
-        cell_pts = torch.clamp_max(self._points[cell_list.long()], 1e15)
-        overflow = torch.from_numpy(
-            plan["overflow"].astype(np.float32)).to(dev)
-        self._grid = {
-            "C": C,
-            "origin": torch.from_numpy(
-                plan["origin"].astype(np.float32)).to(dev),
-            "inv_h": torch.tensor(1.0 / plan["h"], dtype=torch.float32,
-                                  device=dev),
-            "dims": torch.from_numpy(plan["dims"].astype(np.int64)).to(dev),
-            "cell_list": cell_list,
-            "cell_pts": cell_pts,
-            # f32 0/1 flags (the overflow verdict compares > 0.5)
-            "overflow": overflow,
-        }
-        occ = _max_dilated_occupancy(plan["counts"], plan["dims"], C)
-        keep_w = int(min((3 ** d) * C, max(128, -(-occ // 64) * 64)))
-        if n_rows * keep_w * (d + 3) * 4 > self.DIL_MAX_BYTES:
-            return
-        nb = torch.from_numpy(_grid_neighbor_table(plan["dims"],
-                                                   n_cells)).to(dev)
-        dil_pts, dil_cand = _dilate_sorted(cell_pts, cell_list, nb, keep_w)
-        self._grid.update(dil_pts=dil_pts, dil_cand=dil_cand,
-                          dil_ovf=overflow[nb], _dil_keep=keep_w)
+        with trace.span("knn.layout", dev, cells=n_cells):
+            cells, pos, order = _fill_from_flat(
+                torch.from_numpy(plan["flat_ids"]).to(dev))
+            cell_list = _cell_list(cells, pos, order, n_rows, C, self._pad_idx)
+            # pad slots read the 1e30 pad row, clamped to 1e15 so squared pad
+            # distances stay finite (~3e30) yet never rank
+            cell_pts = torch.clamp_max(self._points[cell_list.long()], 1e15)
+            overflow = torch.from_numpy(
+                plan["overflow"].astype(np.float32)).to(dev)
+            self._grid = {
+                "C": C,
+                "origin": torch.from_numpy(
+                    plan["origin"].astype(np.float32)).to(dev),
+                "inv_h": torch.tensor(1.0 / plan["h"], dtype=torch.float32,
+                                      device=dev),
+                "dims": torch.from_numpy(
+                    plan["dims"].astype(np.int64)).to(dev),
+                "cell_list": cell_list,
+                "cell_pts": cell_pts,
+                # f32 0/1 flags (the overflow verdict compares > 0.5)
+                "overflow": overflow,
+            }
+            keep_w = int(min((3 ** d) * C, max(128, -(-occ // 64) * 64)))
+            if n_rows * keep_w * (d + 3) * 4 > self.DIL_MAX_BYTES:
+                return
+            nb = torch.from_numpy(_grid_neighbor_table(plan["dims"],
+                                                       n_cells)).to(dev)
+            dil_pts, dil_cand = _dilate_sorted(cell_pts, cell_list, nb, keep_w)
+            self._grid.update(dil_pts=dil_pts, dil_cand=dil_cand,
+                              dil_ovf=overflow[nb], _dil_keep=keep_w)
 
     def set_values(self, values) -> None:
         """Attach per-point values for :meth:`predict` (``[N]`` or

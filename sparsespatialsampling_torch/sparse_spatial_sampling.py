@@ -8,22 +8,27 @@ checkpoint, both written with ``torch.save``.  Input and result arrays are
 numpy on the host; the engine runs its numerics on ``device`` (the card
 unless the caller asks for the CPU).
 """
+import itertools
 import logging
 import threading
 from contextlib import nullcontext
 from os import makedirs, path
 from os.path import join
-from time import perf_counter
 from typing import Union
 
 import numpy as np
 import torch
 
+from . import trace
 from ._device import resolve_device
 from .engine.graphs import register_worker
 from .engine.tree import SamplingTree
 
 logger = logging.getLogger(__name__)
+
+# the run ids of the objects' spans (``trace``): one an object, shared by
+# its ExportData and its prefetch thread
+_runs = itertools.count(1)
 
 
 def _save_object(obj, file_path: str) -> None:
@@ -83,80 +88,92 @@ class SparseSpatialSampling:
         :param device: torch device of the numerics; None means ``cuda``
             (raises when there is no card)
         """
-        self.device = resolve_device(device)
-        self.n_jobs = n_jobs
-        self.coordinates = np.asarray(coordinates)
-        self.metric = np.asarray(metric)
-        self.save_path = save_path
-        self.save_name = save_name
-        self.grid_name = grid_name
+        self._trace_run = next(_runs)
+        with trace.span("s3.init", run=self._trace_run) as sp:
+            self.device = resolve_device(device)
+            self.n_jobs = n_jobs
+            self.coordinates = np.asarray(coordinates)
+            self.metric = np.asarray(metric)
+            self.save_path = save_path
+            self.save_name = save_name
+            self.grid_name = grid_name
 
-        # results copied off the SamplingTree after execution
-        self.centers = None
-        self.vertices = None
-        self.faces = None
-        self.n_dimensions = int(np.squeeze(self.coordinates).shape[-1])
-        self.size_initial_cell = None
-        self.levels = None
-        self.data_final_mesh = None
+            # results copied off the SamplingTree after execution
+            self.centers = None
+            self.vertices = None
+            self.faces = None
+            self.n_dimensions = int(np.squeeze(self.coordinates).shape[-1])
+            self.size_initial_cell = None
+            self.levels = None
+            self.data_final_mesh = None
 
-        self._geometries = geometry_objects
-        self._level_bounds = int(uniform_levels)
-        self._n_cells_max = (n_cells_max if n_cells_max is None
-                             else int(n_cells_max))
-        self._min_metric = min_metric
-        self._max_delta_level = max_delta_level
-        self._n_cells_iter_start = (n_cells_iter_start
-                                    if n_cells_iter_start is None
-                                    else int(n_cells_iter_start))
-        self._n_cells_iter_end = (n_cells_iter_end if n_cells_iter_end is None
-                                  else int(n_cells_iter_end))
-        self._relTol = relTol
-        self._reach_at_least = reach_at_least
-        self._pre_select_cells = pre_select_cells
+            self._geometries = geometry_objects
+            self._level_bounds = int(uniform_levels)
+            self._n_cells_max = (n_cells_max if n_cells_max is None
+                                 else int(n_cells_max))
+            self._min_metric = min_metric
+            self._max_delta_level = max_delta_level
+            self._n_cells_iter_start = (n_cells_iter_start
+                                        if n_cells_iter_start is None
+                                        else int(n_cells_iter_start))
+            self._n_cells_iter_end = (n_cells_iter_end
+                                      if n_cells_iter_end is None
+                                      else int(n_cells_iter_end))
+            self._relTol = relTol
+            self._reach_at_least = reach_at_least
+            self._pre_select_cells = pre_select_cells
 
-        self._check_input()
+            self._check_input()
+            sp.count(points=int(self.coordinates.shape[0]))
 
-        self._sampling = SamplingTree(
-            self.coordinates, self.metric, self._geometries,
-            n_cells=self._n_cells_max, uniform_level=self._level_bounds,
-            min_metric=self._min_metric,
-            max_delta_level=self._max_delta_level,
-            n_cells_iter_end=self._n_cells_iter_end,
-            n_cells_iter_start=self._n_cells_iter_start,
-            relTol=self._relTol, reach_at_least=self._reach_at_least,
-            pre_select=self._pre_select_cells, device=self.device)
+            self._sampling = SamplingTree(
+                self.coordinates, self.metric, self._geometries,
+                n_cells=self._n_cells_max, uniform_level=self._level_bounds,
+                min_metric=self._min_metric,
+                max_delta_level=self._max_delta_level,
+                n_cells_iter_end=self._n_cells_iter_end,
+                n_cells_iter_start=self._n_cells_iter_start,
+                relTol=self._relTol, reach_at_least=self._reach_at_least,
+                pre_select=self._pre_select_cells, device=self.device)
 
     def execute_grid_generation(self) -> None:
         """Run the refinement and persist the results (reference
         ``execute_grid_generation``, ``sparse_spatial_sampling.py:116-146``).
         The engine's kNN index stays on the object (not in the checkpoint)
         for :class:`ExportData` to reuse."""
-        if not path.exists(self.save_path):
-            makedirs(self.save_path)
-        self._sampling.refine()
-        t0 = perf_counter()
-        self.data_final_mesh = self._sampling.data_final_mesh
-        self.levels = self._sampling.all_levels
-        self.centers = self._sampling.all_centers
-        self.vertices = self._sampling.all_nodes
-        self.faces = self._sampling.face_ids
-        self.size_initial_cell = self.data_final_mesh["size_initial_cell"]
-        self.data_final_mesh["t_finalize"] = perf_counter() - t0
-        _save_object(self.data_final_mesh,
-                     join(self.save_path, f"mesh_info_{self.save_name}.pt"))
+        with trace.span("s3.generation", run=self._trace_run) as gen:
+            if not path.exists(self.save_path):
+                makedirs(self.save_path)
+            self._sampling.refine()
+            with trace.span("s3.finalize") as sp:
+                self.data_final_mesh = self._sampling.data_final_mesh
+                self.levels = self._sampling.all_levels
+                self.centers = self._sampling.all_centers
+                self.vertices = self._sampling.all_nodes
+                self.faces = self._sampling.face_ids
+                self.size_initial_cell = self.data_final_mesh[
+                    "size_initial_cell"]
+            self.data_final_mesh["t_finalize"] = sp.seconds
+            self._checkpoint(self.data_final_mesh, "mesh_info")
 
-        knn_index = self._sampling._knn
-        self._sampling = None   # the checkpoint only needs the final grid
-        prefetch = self._start_prefetch(knn_index)
-        t1 = perf_counter()
-        _save_object(self, join(self.save_path,
-                                f"s_cube_{self.save_name}.pt"))
-        self.data_final_mesh["t_checkpoint"] = perf_counter() - t1
-        self._knn_index = knn_index
-        self._knn_prefetch = prefetch
+            knn_index = self._sampling._knn
+            self._sampling = None   # the checkpoint only needs the final grid
+            prefetch = self._start_prefetch(knn_index, gen.id)
+            self.data_final_mesh["t_checkpoint"] = self._checkpoint(
+                self, "s_cube")
+            self._knn_index = knn_index
+            self._knn_prefetch = prefetch
 
-    def _start_prefetch(self, knn_index) -> dict:
+    def _checkpoint(self, obj, prefix: str) -> float:
+        """Write ``obj`` to ``{prefix}_{save_name}.pt``; returns the
+        write's seconds (the span ``s3.checkpoint``)."""
+        file_path = join(self.save_path, f"{prefix}_{self.save_name}.pt")
+        with trace.span("s3.checkpoint") as sp:
+            _save_object(obj, file_path)
+            sp.count(bytes=path.getsize(file_path))
+        return sp.seconds
+
+    def _start_prefetch(self, knn_index, parent=None) -> dict:
         """Start building the export's default weight cache of the cell
         centres in a worker thread, overlapping the checkpoint write (the
         JAX package's ``execute_grid_generation``, its
@@ -166,8 +183,9 @@ class SparseSpatialSampling:
         "t_build"}``: ``ExportData`` joins the thread and takes
         ``data["centers"]``, the tuple of
         ``ops/interpolate.build_host_weight_cache``; ``t_build`` is the
-        thread's seconds.  A failure is logged, and ``ExportData`` then
-        builds the cache itself."""
+        thread's seconds (the span ``s3.prefetch``, under the span
+        ``parent`` of the run).  A failure is logged, and ``ExportData``
+        then builds the cache itself."""
         from .export import ExportData
         from .ops.interpolate import build_host_weight_cache
         from .ops.knn import KNNIndex
@@ -179,20 +197,22 @@ class SparseSpatialSampling:
             return prefetch
         k = 8 if self.n_dimensions == 2 else 26
         centers, device = self.centers, knn_index.device
+        run = self._trace_run
 
         def build():
-            t0 = perf_counter()
-            try:
-                # the CUDA work of this thread goes to the index's card
-                with (torch.cuda.device(device) if device.type == "cuda"
-                      else nullcontext()):
-                    prefetch["data"]["centers"] = build_host_weight_cache(
-                        knn_index, centers, k)
-            except Exception as exc:
-                logger.warning(f"the export's weight-cache prefetch "
-                               f"failed; ExportData builds the cache: "
-                               f"{exc!r}")
-            prefetch["t_build"] = perf_counter() - t0
+            with trace.span("s3.prefetch", run=run, parent=parent,
+                            cells=int(centers.shape[0])) as sp:
+                try:
+                    # the CUDA work of this thread goes to the index's card
+                    with (torch.cuda.device(device) if device.type == "cuda"
+                          else nullcontext()):
+                        prefetch["data"]["centers"] = \
+                            build_host_weight_cache(knn_index, centers, k)
+                except Exception as exc:
+                    logger.warning(f"the export's weight-cache prefetch "
+                                   f"failed; ExportData builds the cache: "
+                                   f"{exc!r}")
+            prefetch["t_build"] = sp.seconds
 
         prefetch["k"] = k
         prefetch["thread"] = threading.Thread(target=build, daemon=True)
@@ -205,11 +225,18 @@ class SparseSpatialSampling:
     def __getstate__(self):
         """Checkpoints never carry the runtime kNN index (device tensors)
         nor the prefetch (a thread and its cache); :class:`ExportData`
-        rebuilds them on reload."""
+        rebuilds them on reload; nor the run id of its spans, which is
+        the process's own."""
         state = self.__dict__.copy()
         state.pop("_knn_index", None)
         state.pop("_knn_prefetch", None)
+        state.pop("_trace_run", None)
         return state
+
+    def __setstate__(self, state):
+        """A reloaded object's spans take a new run id of this process."""
+        self.__dict__.update(state)
+        self._trace_run = next(_runs)
 
     def _check_input(self) -> None:
         """Validate and auto-correct user settings (reference

@@ -13,12 +13,12 @@ the mesh (``parallel.distributed_rsvd``) where sharding is enabled, as the
 JAX package does.
 """
 import logging
-from time import perf_counter
 from typing import Tuple, Union
 
 import numpy as np
 import torch
 
+from . import trace
 from ._device import resolve_device
 from .io.data import Dataloader, Datawriter
 from .io.const import CONST
@@ -132,9 +132,10 @@ def compute_svd(data_matrix, cell_area, rank: int = None,
 
 
 # sub-phase wall times of the LAST write_svd_s_cube_to_file call (summed
-# over its fields): t_load = HDF5 snapshot/weights reads, t_compute =
-# compute_svd, t_write = mode/grid/XDMF writes.  Observability only — a slow
-# SVD phase is attributable to disk vs math.
+# over its fields), each its spans': t_load = HDF5 snapshot/weights reads
+# (``svd.load``), t_compute = compute_svd (``svd.compute``), t_write =
+# mode/grid/XDMF writes (``svd.write``).  Observability only — a slow SVD
+# phase is attributable to disk vs math.
 last_svd_timings = {}
 
 
@@ -159,37 +160,35 @@ def write_svd_s_cube_to_file(field_names: Union[list, str], load_dir: str, file_
         _write_times = sorted([t for t in dataloader.write_times if float(t) >= t_start],
                               key=lambda x: float(x))
 
-        _t0 = perf_counter()
-        snapshots = dataloader.load_snapshot(f, _write_times)
-        weights = dataloader.weights
-        _t1 = perf_counter()
-        s, u, v = compute_svd(snapshots, weights, rank, device=device)
-        _t2 = perf_counter()
-        last_svd_timings["t_load"] += _t1 - _t0
-        last_svd_timings["t_compute"] += _t2 - _t1
+        with trace.span("svd.load") as sp:
+            snapshots = dataloader.load_snapshot(f, _write_times)
+            weights = dataloader.weights
+        last_svd_timings["t_load"] += sp.seconds
+        with trace.span("svd.compute") as sp:
+            s, u, v = compute_svd(snapshots, weights, rank, device=device)
+        last_svd_timings["t_compute"] += sp.seconds
+        with trace.span("svd.write") as sp:
+            datawriter = Datawriter(load_dir, file_name + f"_{f}_svd.h5")
+            datawriter.write_grid(dataloader)
 
-        _t0 = perf_counter()
-        datawriter = Datawriter(load_dir, file_name + f"_{f}_svd.h5")
-        datawriter.write_grid(dataloader)
+            n_available = u.shape[-1]
+            n_modes = n_available if n_modes is None else n_modes
+            if n_modes > n_available:
+                logger.warning(f"Number of modes to write is set to {n_modes}, but found only "
+                               f"{n_available} modes to write.")
+                n_modes = n_available
 
-        n_available = u.shape[-1]
-        n_modes = n_available if n_modes is None else n_modes
-        if n_modes > n_available:
-            logger.warning(f"Number of modes to write is set to {n_modes}, but found only "
-                           f"{n_available} modes to write.")
-            n_modes = n_available
+            for i in range(n_modes):
+                if u.ndim == 2:
+                    datawriter.write_data(f"mode_{i + 1}", group=CONST, data=u[:, i].squeeze())
+                else:
+                    datawriter.write_data(f"mode_{i + 1}", group=CONST, data=u[:, :, i].squeeze())
 
-        for i in range(n_modes):
-            if u.ndim == 2:
-                datawriter.write_data(f"mode_{i + 1}", group=CONST, data=u[:, i].squeeze())
-            else:
-                datawriter.write_data(f"mode_{i + 1}", group=CONST, data=u[:, :, i].squeeze())
-
-        datawriter.write_data("V", group=CONST, data=v)
-        datawriter.write_data("s", group=CONST, data=s)
-        datawriter.write_data("cell_area", group=CONST, data=dataloader.weights)
-        datawriter.write_xdmf_file()
-        last_svd_timings["t_write"] += perf_counter() - _t0
+            datawriter.write_data("V", group=CONST, data=v)
+            datawriter.write_data("s", group=CONST, data=s)
+            datawriter.write_data("cell_area", group=CONST, data=dataloader.weights)
+            datawriter.write_xdmf_file()
+        last_svd_timings["t_write"] += sp.seconds
 
 
 def compute_dmd(data_matrix, cell_area=None, rank: int = None, dt: float = 1.0,
