@@ -582,8 +582,7 @@ def phase_grid_select_kernel() -> dict:
 
     def unsorted_rows(g):
         """A shard's rows: each cell's 3^d slabs concatenated, unsorted."""
-        nb = torch.from_numpy(knn._grid_neighbor_table(
-            g["dims"].cpu().numpy(), g["cell_list"].shape[0] - 1)).cuda()
+        nb = knn._grid_neighbor_table(g["dims"], g["cell_list"].shape[0] - 1)
         n = nb.shape[0]
         return (g["cell_pts"][nb].reshape(n, -1).contiguous(),
                 g["cell_list"][nb].reshape(n, -1).contiguous())

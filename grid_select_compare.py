@@ -387,8 +387,7 @@ def seeded_sites() -> dict:
                                          (q, *slabs, flat(q), 26, half)),
              "ring_main_order": (BLOCKED, (mq, *slabs, flat(mq), 26))}
     # a shard's rows: each cell's 27 slabs concatenated, unsorted
-    nb = torch.from_numpy(knn._grid_neighbor_table(
-        g["dims"].cpu().numpy(), g["cell_list"].shape[0] - 1)).cuda()
+    nb = knn._grid_neighbor_table(g["dims"], g["cell_list"].shape[0] - 1)
     rows = (g["cell_pts"][nb].reshape(nb.shape[0], -1).contiguous(),
             g["cell_list"][nb].reshape(nb.shape[0], -1).contiguous())
     for n, sorted_rows, layout, tag in (

@@ -173,7 +173,7 @@ def _search(queries, points, points_sq, k: int, tile_n: int, tile_q: int):
 
 
 # ---------------------------------------------------------------------- #
-# bucket grid: host plan, device layout                                  #
+# bucket grid: plan and layout on the index's device                     #
 # ---------------------------------------------------------------------- #
 def _neighbor_offsets(d: int, radius: int = 1) -> np.ndarray:
     """All (2r+1)^d offsets in {-r..r}^d (the query cell's neighbourhood)."""
@@ -191,32 +191,48 @@ def _neighbor_offsets_on(d: int, radius: int, like: torch.Tensor):
                        dim=-1).reshape(-1, d).to(like.dtype)
 
 
-def _plan_grid(points: np.ndarray, n_points: int, occupancy: int,
+def _plan_grid(points: torch.Tensor, n_points: int, occupancy: int,
                capacity: int, shrink_target: int = 32) -> dict:
-    """Host bucket-grid plan over a (centred, Morton-sorted) point cloud.
+    """Bucket-grid plan over a (centred, Morton-sorted) cloud ``[N, d]``,
+    on its device: the JAX package's host plan, bit for bit.
 
     Chooses the cell size ``h`` (≈ (occupancy/density)^(1/d), grown to a
     ~8·N storage cap, then shrunk until no cell exceeds ``shrink_target``
     members while the budget allows) and the per-cell capacity ``C`` (the
     pow2 covering the largest occupancy when that fits, else the 99.9th
-    percentile, the rest overflowing into the exact fallback).  Returns
-    numpy arrays only; member indices reference ``points``' row order."""
-    d = points.shape[1]
-    lo = points.min(axis=0)
-    hi = points.max(axis=0)
+    percentile, the rest overflowing into the exact fallback).  The scalar
+    loop runs on the host from the cloud's bounds; each cell-count pass
+    (``(p - lo) / h`` truncated and clipped, flat ids, ``bincount``) runs
+    on the device and reads back its largest count (``passes`` counts
+    them); only the over-capacity branch reads the counts back, for
+    numpy's percentile.  Returns the scalars ``h``, ``C``, ``n_cells``,
+    ``passes``, ``dims`` (numpy int64) and, on the device, ``origin``
+    (``lo``, the cloud's dtype), ``overflow`` (``[n_cells + 1]`` f32 0/1),
+    ``counts`` and the per-point ``flat_ids`` (int64, in ``points``' row
+    order)."""
+    dev, d = points.device, points.shape[1]
+    lo_dev = points.amin(dim=0)
+    lo, hi = torch.stack([lo_dev, points.amax(dim=0)]).cpu().numpy()
     extent = np.maximum(hi - lo, 1e-30)
     density = n_points / float(np.prod(extent))
     h = (occupancy / density) ** (1.0 / d)
+    passes = 0
 
     def build_cells(h_val):
+        nonlocal passes
+        passes += 1
         dims_v = np.maximum(np.ceil(extent / h_val).astype(np.int64), 1)
-        cc = np.clip(((points - lo) / h_val).astype(np.int64), 0,
-                     dims_v - 1)
-        flat_v = cc[:, 0]
+        # divided by a device scalar: the card divides by a host scalar
+        # through its reciprocal, which rounds otherwise
+        t = ((points - lo_dev) / torch.full((), h_val, dtype=points.dtype,
+                                            device=dev)).long()
+        flat_v = t[:, 0].clamp(0, int(dims_v[0]) - 1)
         for ax in range(1, d):
-            flat_v = flat_v * dims_v[ax] + cc[:, ax]
-        counts_v = np.bincount(flat_v, minlength=int(np.prod(dims_v)))
-        return dims_v, flat_v, counts_v
+            flat_v = (flat_v * int(dims_v[ax])
+                      + t[:, ax].clamp(0, int(dims_v[ax]) - 1))
+        del t
+        counts_v = torch.bincount(flat_v, minlength=int(np.prod(dims_v)))
+        return dims_v, flat_v, counts_v, int(counts_v.max())
 
     store_c = min(capacity, 2 * shrink_target)
 
@@ -226,65 +242,70 @@ def _plan_grid(points: np.ndarray, n_points: int, occupancy: int,
 
     while not storage_ok(h):
         h *= 1.26
-    dims, flat, counts = build_cells(h)
+    dims, flat, counts, maxc = build_cells(h)
     for _ in range(8):
-        if counts.max() <= shrink_target or not storage_ok(h / 1.15):
+        if maxc <= shrink_target or not storage_ok(h / 1.15):
             break
         h /= 1.15
-        dims, flat, counts = build_cells(h)
+        del flat, counts
+        dims, flat, counts, maxc = build_cells(h)
     n_cells = int(np.prod(dims))
 
-    maxc = int(counts.max())
     if maxc <= capacity:
         C = max(16, 1 << int(max(maxc, 2) - 1).bit_length())
     else:
-        occupied = counts[counts > 0]
+        host = counts.cpu().numpy()
+        occupied = host[host > 0]
         c999 = int(np.percentile(occupied, 99.9)) if occupied.size else 1
         C = 1 << int(max(c999, 2, occupancy) - 1).bit_length()
         C = int(min(capacity, max(16, C)))
-    overflow = np.zeros(n_cells + 1, dtype=bool)
+    overflow = torch.zeros(n_cells + 1, dtype=torch.float32, device=dev)
     overflow[:n_cells] = counts > C
-    return {"h": float(h), "C": C, "n_cells": n_cells, "origin": lo,
-            "dims": dims, "overflow": overflow, "counts": counts,
-            "flat_ids": flat}
+    return {"h": float(h), "C": C, "n_cells": n_cells, "passes": passes,
+            "origin": lo_dev, "dims": dims, "overflow": overflow,
+            "counts": counts, "flat_ids": flat}
 
 
-def _grid_neighbor_table(dims: np.ndarray, n_cells: int) -> np.ndarray:
-    """``[n_cells+1, 3^d]`` int64: each cell's 3^d neighbourhood as flat
-    cell ids; out-of-range neighbours and the sentinel row map to the
-    all-pad sentinel row ``n_cells``."""
-    d = len(dims)
-    coords = np.stack(np.unravel_index(
-        np.arange(n_cells, dtype=np.int64), dims), axis=1)
-    strides = np.ones(d, dtype=np.int64)
-    for ax in range(d - 2, -1, -1):
-        strides[ax] = strides[ax + 1] * dims[ax + 1]
-    base = coords @ strides
-    offsets = _neighbor_offsets(d)
-    out = np.empty((n_cells + 1, 3 ** d), dtype=np.int64)
-    out[n_cells] = n_cells
-    for j, off in enumerate(offsets):
-        valid = np.ones(n_cells, dtype=bool)
+def _grid_neighbor_table(dims: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """``[n_cells+1, 3^d]`` int64 on ``dims``' device (``dims`` an integer
+    tensor ``[d]``): each cell's 3^d neighbourhood as flat cell ids;
+    out-of-range neighbours and the sentinel row map to the all-pad
+    sentinel row ``n_cells``.  Built one offset at a time, so its
+    transients are ``[n_cells]`` columns."""
+    d = dims.shape[0]
+    dims = dims.long()
+    rem = torch.arange(n_cells, device=dims.device)
+    coords = [None] * d
+    for ax in range(d - 1, 0, -1):
+        coords[ax] = rem % dims[ax]
+        rem = rem // dims[ax]
+    coords[0] = rem
+    out = torch.full((n_cells + 1, 3 ** d), n_cells, dtype=torch.int64,
+                     device=dims.device)
+    for j, off in enumerate(_neighbor_offsets(d).tolist()):
+        flat = None
+        valid = torch.ones(n_cells, dtype=torch.bool, device=dims.device)
         for ax in range(d):
+            c = coords[ax] + off[ax]
             if off[ax]:
-                c = coords[:, ax] + int(off[ax])
                 valid &= (c >= 0) & (c < dims[ax])
-        out[:n_cells, j] = np.where(valid, base + int((off * strides).sum()),
-                                    n_cells)
+            flat = c if flat is None else flat * dims[ax] + c
+        out[:n_cells, j] = torch.where(valid, flat, n_cells)
     return out
 
 
-def _max_dilated_occupancy(counts: np.ndarray, dims, C: int) -> int:
+def _max_dilated_occupancy(counts: torch.Tensor, dims, C: int) -> int:
     """Exact largest number of real (non-pad) candidates in any 3^d
-    dilated row, from the capped per-cell member counts."""
+    dilated row, from the per-cell member counts (on their device) capped
+    at ``C``."""
     dims = tuple(int(x) for x in dims)
-    cg = np.minimum(counts, C).reshape(dims)
     d = len(dims)
-    cgp = np.pad(cg, [(1, 1)] * d)
-    acc = np.zeros_like(cg)
+    cgp = counts.new_zeros(tuple(s + 2 for s in dims))
+    cgp[(slice(1, -1),) * d] = torch.clamp_max(counts, C).reshape(dims)
+    acc = counts.new_zeros(dims)
     for off in np.ndindex(*(3,) * d):
         acc += cgp[tuple(slice(o, o + s) for o, s in zip(off, dims))]
-    return int(acc.max()) if acc.size else 0
+    return int(acc.max()) if acc.numel() else 0
 
 
 def _fill_from_flat(flat: torch.Tensor):
@@ -500,18 +521,62 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _morton_order(pts: np.ndarray) -> np.ndarray:
-    """Stable Morton order of a (centred) cloud ``[N, d]``: sorted position
-    → original point index (lexicographic on the first axis in 1D or above
-    3D)."""
-    depth = morton.MAX_DEPTH.get(pts.shape[1])
+def _morton_order(cloud: torch.Tensor) -> torch.Tensor:
+    """Stable Morton order of a (centred) cloud ``[N, d]`` on its device:
+    sorted position → original point index (int64).  The lattice
+    coordinates and codes are the JAX package's numpy ones bit for bit
+    (the same IEEE operations in the same order, truncating casts), and a
+    stable sort of the int64 codes is numpy's stable argsort of the
+    uint64 ones.  In 1D or above 3D the order is lexicographic on the
+    first axis: a stable float sort, left on the host (a device sort may
+    order +0.0 and -0.0 otherwise)."""
+    depth = morton.MAX_DEPTH.get(cloud.shape[1])
     if depth is None:
-        return np.argsort(pts[:, 0], kind="stable")
-    lo = pts.min(axis=0)
-    extent = np.maximum(pts.max(axis=0) - lo, 1e-30)
-    grid = np.clip(((pts - lo) / extent * ((1 << depth) - 1)).astype(
-        np.uint64), 0, (1 << depth) - 1)
-    return np.argsort(morton.encode(grid), kind="stable")
+        first = cloud[:, 0].cpu().numpy()
+        return torch.from_numpy(np.argsort(first, kind="stable")).to(
+            cloud.device)
+    lo = cloud.amin(dim=0)
+    extent = torch.clamp_min(cloud.amax(dim=0) - lo, 1e-30)
+    top = (1 << depth) - 1
+    lattice = torch.clamp(((cloud - lo) / extent * top).long(), 0, top)
+    return torch.sort(morton.encode_tensor(lattice), stable=True).indices
+
+
+def _padded_points(cloud: torch.Tensor, n_pad: int):
+    """The sorted cloud's padded f32 copy ``[n_pad, d]`` (pad rows 1e30)
+    and its squared norms ``[n_pad]`` f32 (pad rows +inf), on its device.
+    Each norm is the f64 sum ``x·x + y·y (+ z·z)`` left to right, as numpy
+    sums a row, rounded to f32."""
+    n, d = cloud.shape
+    pts = torch.full((n_pad, d), 1e30, dtype=torch.float32,
+                     device=cloud.device)
+    pts[:n] = cloud
+    c = cloud.double()
+    norm = c[:, 0] * c[:, 0]
+    for a in range(1, d):
+        norm = norm + c[:, a] * c[:, a]
+    sq = torch.full((n_pad,), float("inf"), dtype=torch.float32,
+                    device=cloud.device)
+    sq[:n] = norm
+    return pts, sq
+
+
+def _pad_perm(perm: torch.Tensor) -> torch.Tensor:
+    """The permutation with one more entry, 0, for the pad index."""
+    return torch.cat([perm, perm.new_zeros(1)])
+
+
+def _sorted_values(values: np.ndarray, perm_pad: torch.Tensor,
+                   n_rows: int) -> torch.Tensor:
+    """Per-point ``values`` (f32, the caller's order) in sorted-point order
+    on ``perm_pad``'s device, zero from row N to ``n_rows``: uploaded as
+    given and gathered there through the permutation."""
+    n = values.shape[0]
+    out = torch.zeros((n_rows,) + values.shape[1:], dtype=torch.float32,
+                      device=perm_pad.device)
+    out[:n] = torch.from_numpy(np.ascontiguousarray(values)).to(
+        perm_pad.device).index_select(0, perm_pad[:n])
+    return out
 
 
 class KNNIndex:
@@ -543,121 +608,118 @@ class KNNIndex:
     def __init__(self, points, values=None, device=None,
                  tile_n: int = DEFAULT_TILE_N, tile_q: int = DEFAULT_TILE_Q):
         """The build is the span ``knn.build`` (its seconds: ``build_s``),
-        with the children ``knn.order`` (the centring and the Morton
-        order), ``knn.upload`` (the points to the device, and after the
-        grid the values), and on the grid path ``knn.plan`` (the host's
-        bucket-grid plan) and ``knn.layout`` (the blocked and dilated
-        layouts, on the device)."""
-        self.device = resolve_device(device)
+        with the children ``knn.upload`` (the host's centring and the
+        centred cloud to the device, and after the grid the values),
+        ``knn.order`` (the Morton order on the device, the permutation back
+        to the host, the sorted cloud's padded f32 copy and norms), and on
+        the grid path ``knn.plan`` (the bucket-grid plan: its cell-count
+        passes on the device, its scalar loop on the host) and
+        ``knn.layout`` (the blocked and dilated layouts, on the device)."""
+        self.device = dev = resolve_device(device)
         points = np.asarray(points)
         self.n_points, self.n_dim = points.shape
         self._tile_q = tile_q
         self._tile_n = min(tile_n, _round_up(self.n_points, 128))
-        with trace.span("knn.build", self.device,
-                        points=self.n_points) as sp:
-            with trace.span("knn.order"):
+        with trace.span("knn.build", dev, points=self.n_points) as sp:
+            with trace.span("knn.upload", dev) as up:
                 # centring improves the f32 accuracy of the expanded score
                 self._shift = points.mean(axis=0)
                 centered = points - self._shift
+                self._points_host = centered  # predict_host's exact f64 pass
+                cloud = torch.from_numpy(centered).to(dev)
+                up.count(bytes=centered.nbytes)
+
+            with trace.span("knn.order", dev) as order:
                 # Morton order: grid cells hold contiguous index ranges and
                 # the full-scan tiles stay spatially coherent; ``_perm``
                 # maps sorted position → original point index
-                self._perm = _morton_order(centered)
-                sorted_pts = centered[self._perm]
-
-            with trace.span("knn.upload", self.device) as up:
+                perm = _morton_order(cloud)
+                self._perm = perm.cpu().numpy()
+                order.count(readback_bytes=self._perm.nbytes)
+                cloud = cloud.index_select(0, perm)
                 # +1 guarantees a pad row: the index ``n_points`` always
                 # exists
-                n_pad = _round_up(self.n_points + 1, self._tile_n)
-                pts = np.full((n_pad, self.n_dim), 1e30, dtype=np.float32)
-                pts[:self.n_points] = sorted_pts
-                sq = np.full((n_pad,), np.inf, dtype=np.float32)
-                sq[:self.n_points] = (sorted_pts.astype(np.float64)
-                                      ** 2).sum(axis=1)
-                perm = np.concatenate([self._perm, np.zeros(1, np.int64)])
-                self._points = torch.from_numpy(pts).to(self.device)
-                self._points_sq = torch.from_numpy(sq).to(self.device)
-                self._points_host = centered  # predict_host's exact f64 pass
+                self._points, self._points_sq = _padded_points(
+                    cloud, _round_up(self.n_points + 1, self._tile_n))
+                self._perm_dev = _pad_perm(perm)
+                del perm
                 self._pad_idx = self.n_points
-                self._perm_dev = torch.from_numpy(perm).to(self.device)
-                up.count(bytes=pts.nbytes + sq.nbytes + perm.nbytes)
 
             self._grid = None
             # exact-fallback row count of the most recent grid query
             self.last_fallback = 0
+            plan = None
             if self.n_points >= self.GRID_MIN_POINTS and self.n_dim in (2, 3):
-                self._build_grid(sorted_pts)
+                with trace.span("knn.plan", dev) as pl:
+                    plan = _plan_grid(cloud, self.n_points,
+                                      self.GRID_OCCUPANCY, self.GRID_CAPACITY,
+                                      self.GRID_SHRINK_TARGET)
+                    plan["occ"] = _max_dilated_occupancy(
+                        plan.pop("counts"), plan["dims"], plan["C"])
+                    pl.count(cells=plan["n_cells"], passes=plan["passes"])
+            # the sorted cloud goes before the layouts' transients
+            del cloud
+            if plan is not None:
+                self._build_grid(plan)
 
             # the values after the grid, whose build transients they would
             # otherwise add to
             self._values = None
             if values is not None:
-                with trace.span("knn.upload", self.device) as up:
+                with trace.span("knn.upload", dev) as up:
                     self.set_values(values)
-                    up.count(bytes=self._values.element_size()
-                             * self._values.nelement())
+                    up.count(bytes=self._values_host.nbytes)
         self.build_s = sp.seconds
 
-    def _build_grid(self, sorted_pts: np.ndarray) -> None:
-        """Bucket grid over the sorted cloud: the blocked layout (each
-        cell's members as one ``[C, d]`` slab) and, within
-        ``DIL_MAX_BYTES``, the dilated layout: each cell's row lists the
-        members of its whole 3^d neighbourhood, ascending by index,
-        compacted to the widest occupied row (a multiple of 64, at least
-        128).  The host's plan is the span ``knn.plan``, the layouts on
-        the device ``knn.layout``."""
+    def _build_grid(self, plan: dict) -> None:
+        """Bucket grid of :func:`_plan_grid`'s ``plan`` (with the dilated
+        rows' largest occupancy ``occ``): the blocked layout (each cell's
+        members as one ``[C, d]`` slab) and, within ``DIL_MAX_BYTES``, the
+        dilated layout: each cell's row lists the members of its whole 3^d
+        neighbourhood, ascending by index, compacted to the widest occupied
+        row (a multiple of 64, at least 128).  The span ``knn.layout``;
+        the plan's flat ids go once the fill has them."""
         dev = self.device
         d = self.n_dim
-        with trace.span("knn.plan") as sp:
-            plan = _plan_grid(sorted_pts, self.n_points, self.GRID_OCCUPANCY,
-                              self.GRID_CAPACITY, self.GRID_SHRINK_TARGET)
-            C, n_cells = plan["C"], plan["n_cells"]
-            occ = _max_dilated_occupancy(plan["counts"], plan["dims"], C)
-            sp.count(cells=n_cells)
+        C, n_cells = plan["C"], plan["n_cells"]
         n_rows = n_cells + 1
         with trace.span("knn.layout", dev, cells=n_cells):
-            cells, pos, order = _fill_from_flat(
-                torch.from_numpy(plan["flat_ids"]).to(dev))
+            cells, pos, order = _fill_from_flat(plan.pop("flat_ids"))
             cell_list = _cell_list(cells, pos, order, n_rows, C, self._pad_idx)
             # pad slots read the 1e30 pad row, clamped to 1e15 so squared pad
             # distances stay finite (~3e30) yet never rank
             cell_pts = torch.clamp_max(self._points[cell_list.long()], 1e15)
-            overflow = torch.from_numpy(
-                plan["overflow"].astype(np.float32)).to(dev)
+            overflow = plan["overflow"]
             self._grid = {
                 "C": C,
-                "origin": torch.from_numpy(
-                    plan["origin"].astype(np.float32)).to(dev),
+                "origin": plan["origin"].float(),
                 "inv_h": torch.tensor(1.0 / plan["h"], dtype=torch.float32,
                                       device=dev),
-                "dims": torch.from_numpy(
-                    plan["dims"].astype(np.int64)).to(dev),
+                "dims": torch.from_numpy(plan["dims"]).to(dev),
                 "cell_list": cell_list,
                 "cell_pts": cell_pts,
                 # f32 0/1 flags (the overflow verdict compares > 0.5)
                 "overflow": overflow,
             }
-            keep_w = int(min((3 ** d) * C, max(128, -(-occ // 64) * 64)))
+            keep_w = int(min((3 ** d) * C,
+                             max(128, -(-plan["occ"] // 64) * 64)))
             if n_rows * keep_w * (d + 3) * 4 > self.DIL_MAX_BYTES:
                 return
-            nb = torch.from_numpy(_grid_neighbor_table(plan["dims"],
-                                                       n_cells)).to(dev)
+            nb = _grid_neighbor_table(self._grid["dims"], n_cells)
             dil_pts, dil_cand = _dilate_sorted(cell_pts, cell_list, nb, keep_w)
             self._grid.update(dil_pts=dil_pts, dil_cand=dil_cand,
                               dil_ovf=overflow[nb], _dil_keep=keep_w)
 
     def set_values(self, values) -> None:
         """Attach per-point values for :meth:`predict` (``[N]`` or
-        ``[N, C]``), sorted like the points, plus one zero pad row that
-        the pad index ``n_points`` gathers."""
+        ``[N, C]``), sorted like the points on the device, plus one zero
+        pad row that the pad index ``n_points`` gathers."""
         values = np.asarray(values, dtype=np.float32)
         if values.shape[0] != self.n_points:
             raise ValueError(f"{values.shape[0]} values for "
                              f"{self.n_points} points")
-        padded = np.zeros((self.n_points + 1,) + values.shape[1:],
-                          dtype=np.float32)
-        padded[:self.n_points] = values[self._perm]
-        self._values = torch.from_numpy(padded).to(self.device)
+        self._values = _sorted_values(values, self._perm_dev,
+                                      self.n_points + 1)
         self._values_host = values
 
     # ------------------------------------------------------------------ #

@@ -12,49 +12,67 @@ pure integer arithmetic:
 - corner nodes   = ``(coords + offset) << (D - level)`` on the depth-D lattice
 - neighbor cell  = ``coords + dir``, ``dir ∈ {-1, 0, 1}^d``
 
-All helpers are vectorized numpy (they run once per refinement epoch on
-index-sized arrays); heavy numerics run on the device.  Copy of the part of
+The lattice helpers are vectorized numpy (they run once per refinement
+epoch on index-sized arrays); :func:`encode_tensor` gives the kNN index's
+Morton order on its device.  Copy of the part of
 the JAX package's ``ops/morton.py`` that the port uses (it may not import
 that module).
 """
 import numpy as np
+import torch
 
 # maximum lattice depth per dimensionality such that node keys fit in int64
 MAX_DEPTH = {2: 30, 3: 20}
 
 
-def _part1by1(x: np.ndarray) -> np.ndarray:
-    """Spread the lower 32 bits of x so there is a zero bit between each."""
-    x = x.astype(np.uint64) & np.uint64(0xFFFFFFFF)
-    x = (x | (x << np.uint64(16))) & np.uint64(0x0000FFFF0000FFFF)
-    x = (x | (x << np.uint64(8))) & np.uint64(0x00FF00FF00FF00FF)
-    x = (x | (x << np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
-    x = (x | (x << np.uint64(2))) & np.uint64(0x3333333333333333)
-    x = (x | (x << np.uint64(1))) & np.uint64(0x5555555555555555)
-    return x
+# the bit-spreading steps of :func:`encode`: the input mask, then each
+# ``x = (x | x << shift) & mask``; one table for numpy's uint64 and
+# torch's int64 codes (every mask is below 2^63)
+_SPREAD = {
+    2: (0xFFFFFFFF, ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF),
+                     (4, 0x0F0F0F0F0F0F0F0F), (2, 0x3333333333333333),
+                     (1, 0x5555555555555555))),
+    3: (0x1FFFFF, ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                   (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                   (2, 0x1249249249249249))),
+}
 
 
-def _part1by2(x: np.ndarray) -> np.ndarray:
-    """Spread the lower 21 bits of x so there are two zero bits between each."""
-    x = x.astype(np.uint64) & np.uint64(0x1FFFFF)
-    x = (x | (x << np.uint64(32))) & np.uint64(0x1F00000000FFFF)
-    x = (x | (x << np.uint64(16))) & np.uint64(0x1F0000FF0000FF)
-    x = (x | (x << np.uint64(8))) & np.uint64(0x100F00F00F00F00F)
-    x = (x | (x << np.uint64(4))) & np.uint64(0x10C30C30C30C30C3)
-    x = (x | (x << np.uint64(2))) & np.uint64(0x1249249249249249)
+def _spread(x, d: int):
+    """Spread the bits of ``x`` so ``d - 1`` zero bits lie between each (a
+    uint64 array or an int64 tensor)."""
+    if d not in _SPREAD:
+        raise ValueError(f"Unsupported dimensionality {d}.")
+    first, steps = _SPREAD[d]
+    if isinstance(x, torch.Tensor):
+        x = x & first
+        for shift, mask in steps:
+            x = (x | (x << shift)) & mask
+        return x
+    x = x.astype(np.uint64) & np.uint64(first)
+    for shift, mask in steps:
+        x = (x | (x << np.uint64(shift))) & np.uint64(mask)
     return x
 
 
 def encode(coords: np.ndarray) -> np.ndarray:
     """Interleave integer coordinates ``[N, d]`` into Morton codes ``[N]`` (uint64)."""
     d = coords.shape[-1]
-    if d == 2:
-        return _part1by1(coords[..., 0]) | (_part1by1(coords[..., 1]) << np.uint64(1))
-    if d == 3:
-        return (_part1by2(coords[..., 0])
-                | (_part1by2(coords[..., 1]) << np.uint64(1))
-                | (_part1by2(coords[..., 2]) << np.uint64(2)))
-    raise ValueError(f"Unsupported dimensionality {d}.")
+    code = _spread(coords[..., 0], d)
+    for ax in range(1, d):
+        code = code | (_spread(coords[..., ax], d) << np.uint64(ax))
+    return code
+
+
+def encode_tensor(coords: torch.Tensor) -> torch.Tensor:
+    """:func:`encode` of int64 coordinates ``[N, d]`` on their device, as
+    int64 codes: at the lattice depths of :data:`MAX_DEPTH` a code is below
+    2^60, so the signed codes order as the uint64 ones do."""
+    d = coords.shape[-1]
+    code = _spread(coords[..., 0], d)
+    for ax in range(1, d):
+        code = code | (_spread(coords[..., ax], d) << ax)
+    return code
 
 
 def anchor(coords: np.ndarray, level: np.ndarray, depth: int) -> np.ndarray:

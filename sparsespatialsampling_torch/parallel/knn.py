@@ -38,8 +38,9 @@ from ..ops import topk as _topk
 from ..ops.knn import (DEFAULT_TILE_N, DEFAULT_TILE_Q, KNNIndex, _cell_list,
                        _dilated_select, _fill_from_flat, _grid_neighbor_table,
                        _grid_query_margin, _idw, _morton_order,
-                       _overflow_contaminated, _plan_grid, _round_up,
-                       _score_candidates, _sqrt, _sqsum, _topk_canonical,
+                       _overflow_contaminated, _pad_perm, _padded_points,
+                       _plan_grid, _round_up, _score_candidates,
+                       _sorted_values, _sqrt, _sqsum, _topk_canonical,
                        _weighted_sum)
 from .mesh import Mesh, all_gather, shard_rows
 
@@ -67,26 +68,27 @@ class ShardedKNNIndex:
         self.n_points, self.n_dim = points.shape
         self._shift = points.mean(axis=0)
         centered = points - self._shift
-        perm = _morton_order(centered)
-        sorted_pts = centered[perm]
-        n_padded = _round_up(self.n_points, mesh.size)
-        pts = np.full((n_padded, self.n_dim), 1e30, dtype=np.float32)
-        pts[:self.n_points] = sorted_pts
-        sq = np.full(n_padded, np.inf, dtype=np.float32)
-        sq[:self.n_points] = (sorted_pts.astype(np.float64) ** 2).sum(axis=1)
-        self._setup(mesh, pts, sq, perm, centered, tile_n, tile_q)
+        # the single-device index's order, points and norms, built on the
+        # mesh's root
+        cloud = torch.from_numpy(centered).to(mesh.root)
+        perm = _morton_order(cloud)
+        cloud = cloud.index_select(0, perm)
+        pts, sq = _padded_points(cloud, _round_up(self.n_points, mesh.size))
+        self._setup(mesh, pts, sq, _pad_perm(perm), centered, tile_n, tile_q)
         # the JAX package's own centring, from the cloud cast to f32: the
         # host distances of :meth:`weights`
         p32 = np.asarray(points, dtype=np.float32)
         shift32 = p32.mean(axis=0)
         self._host32 = (p32 - shift32, shift32)
         if self.n_points >= self.GRID_MIN_POINTS and self.n_dim in (2, 3):
-            self._build_grid(sorted_pts, pts)
+            self._build_grid(cloud, pts)
         if values is not None:
             self.set_values(values)
 
-    def _setup(self, mesh, pts, sq, perm, points_host, tile_n, tile_q):
-        """The shards' slabs and the root's bookkeeping."""
+    def _setup(self, mesh, pts, sq, perm_pad, points_host, tile_n, tile_q):
+        """The shards' slabs of the padded points and norms (tensors) and
+        the root's bookkeeping; ``perm_pad`` is the permutation with the
+        pad index's entry."""
         self.mesh = mesh
         self.n_shards = mesh.size
         self.device = mesh.root
@@ -96,31 +98,29 @@ class ShardedKNNIndex:
         self._tile_n = min(tile_n, _round_up(self._n_local, 128))
         self._shards = [
             {"device": dev, "points": p, "points_sq": s}
-            for dev, p, s in zip(mesh.devices,
-                                 shard_rows(torch.from_numpy(pts), mesh),
-                                 shard_rows(torch.from_numpy(sq), mesh))]
+            for dev, p, s in zip(mesh.devices, shard_rows(pts, mesh),
+                                 shard_rows(sq, mesh))]
         self._points_host = np.asarray(points_host, dtype=np.float64)
         self._pad_idx = self.n_points
-        self._perm = perm
-        self._perm_dev = torch.from_numpy(
-            np.concatenate([perm, np.zeros(1, np.int64)])).to(self.device)
+        self._perm_dev = perm_pad.to(self.device)
+        self._perm = self._perm_dev[:self.n_points].cpu().numpy()
         self._grid = None
         self._grid_fill = None
         self._values = None
         # exact-fallback row count of the most recent grid query
         self.last_fallback = 0
 
-    def _build_grid(self, sorted_pts: np.ndarray, pts: np.ndarray) -> None:
+    def _build_grid(self, cloud: torch.Tensor, pts: torch.Tensor) -> None:
         """The row-sharded dilated bucket grid: the single-device index's
-        host plan, each cell's row the members of its whole 3^d
+        plan, each cell's row the members of its whole 3^d
         neighbourhood (unsorted, 3^d·C wide), rows padded with copies of
         the sentinel row to a multiple of the shard count and cut into one
         contiguous block per shard.  Built only within
-        ``GRID_DEVICE_BYTES`` a shard.  ``sorted_pts`` is the centred
-        sorted cloud the plan is made from (as the single-device index
-        makes it), ``pts`` its padded f32 copy."""
+        ``GRID_DEVICE_BYTES`` a shard.  ``cloud`` is the centred sorted
+        cloud the plan is made from (as the single-device index makes it),
+        ``pts`` its padded f32 copy, both on the root."""
         d, root = self.n_dim, self.device
-        plan = _plan_grid(sorted_pts, self.n_points,
+        plan = _plan_grid(cloud, self.n_points,
                           self.GRID_OCCUPANCY, self.GRID_CAPACITY)
         C, n_cells = plan["C"], plan["n_cells"]
         rows = n_cells + 1
@@ -128,25 +128,22 @@ class ShardedKNNIndex:
                                                  * self.n_shards):
             return
         rows_pad = _round_up(rows, self.n_shards)
-        cells, pos, order = _fill_from_flat(
-            torch.from_numpy(plan["flat_ids"]).to(root))
+        cells, pos, order = _fill_from_flat(plan["flat_ids"])
         cell_list = _cell_list(cells, pos, order, rows, C, self._pad_idx)
         # the pad index reads a 1e30 row, clamped to 1e15 as in the
         # single-device layout: squared pad distances stay finite but
         # never rank
-        pts_pad = np.concatenate([pts[:self.n_points],
-                                  np.full((1, d), 1e30, np.float32)])
-        cell_pts = torch.clamp_max(
-            torch.from_numpy(pts_pad).to(root)[cell_list.long()], 1e15)
-        nb = _grid_neighbor_table(plan["dims"], n_cells)
-        nb = torch.from_numpy(np.concatenate(
-            [nb, np.repeat(nb[-1:], rows_pad - rows, axis=0)])).to(root)
-        overflow = torch.from_numpy(plan["overflow"].astype(np.float32)).to(
-            root)
+        pts_pad = torch.cat([pts[:self.n_points],
+                             pts.new_full((1, d), 1e30)])
+        cell_pts = torch.clamp_max(pts_pad[cell_list.long()], 1e15)
+        dims = torch.from_numpy(plan["dims"]).to(root)
+        nb = _grid_neighbor_table(dims, n_cells)
+        nb = torch.cat([nb, nb[-1:].expand(rows_pad - rows, -1)])
+        overflow = plan["overflow"]
         consts = {
-            "origin": torch.from_numpy(plan["origin"].astype(np.float32)),
+            "origin": plan["origin"].float(),
             "inv_h": torch.tensor(1.0 / plan["h"], dtype=torch.float32),
-            "dims": torch.from_numpy(plan["dims"].astype(np.int64))}
+            "dims": dims}
         rpd = rows_pad // self.n_shards
         shards = []
         for s, dev in enumerate(self.mesh.devices):
@@ -179,10 +176,8 @@ class ShardedKNNIndex:
         if values.shape[0] != self.n_points:
             raise ValueError(f"{values.shape[0]} values for "
                              f"{self.n_points} points")
-        padded = np.zeros((max(self._n_padded, self.n_points + 1),)
-                          + values.shape[1:], dtype=np.float32)
-        padded[:self.n_points] = values[self._perm]
-        self._values = torch.from_numpy(padded).to(self.device)
+        self._values = _sorted_values(
+            values, self._perm_dev, max(self._n_padded, self.n_points + 1))
         self._values_host = values
         if self._grid_fill is not None and values.ndim == 1:
             cell_list, nb = self._grid_fill
@@ -394,7 +389,9 @@ def sharded_index_from_reference(arrays: dict, mesh: Mesh
     idx.n_points = int(np.isfinite(sq).sum())
     idx.n_dim = pts.shape[1]
     idx._shift = np.asarray(arrays["_shift"], dtype=np.float64)
-    idx._setup(mesh, pts.copy(), sq.copy(), np.arange(idx.n_points),
+    idx._setup(mesh, torch.from_numpy(pts.copy()),
+               torch.from_numpy(sq.copy()),
+               _pad_perm(torch.arange(idx.n_points)),
                np.asarray(arrays["_points_host"])[:idx.n_points],
                DEFAULT_TILE_N, DEFAULT_TILE_Q)
     idx._host32 = (np.asarray(arrays["_points_host"],

@@ -103,7 +103,8 @@ def test_dilated_plain_matches_jax(layout, sorted_rows):
         pts, cand = g["dil_pts"], g["dil_cand"]
     else:
         # a shard's rows: each cell's 3^d slabs as they come
-        nb = tknn._grid_neighbor_table(g["dims"], g["cell_list"].shape[0] - 1)
+        nb = tknn._grid_neighbor_table(
+            _t(g["dims"]), g["cell_list"].shape[0] - 1).numpy()
         rows = nb.shape[0]
         pts = g["cell_pts"][nb].reshape(rows, -1)
         cand = g["cell_list"][nb].reshape(rows, -1)
@@ -523,8 +524,7 @@ def test_kernel_matches_plain_on_card():
     args = (q, g["dil_pts"], g["dil_cand"], flat, 26)
     got, ref = gs.grid_select_dilated(*args), gs.grid_select_dilated_plain(
         *args)
-    nb = torch.from_numpy(tknn._grid_neighbor_table(
-        g["dims"].cpu().numpy(), g["cell_list"].shape[0] - 1)).cuda()
+    nb = tknn._grid_neighbor_table(g["dims"], g["cell_list"].shape[0] - 1)
     args = (q, g["cell_pts"][nb].reshape(nb.shape[0], -1).contiguous(),
             g["cell_list"][nb].reshape(nb.shape[0], -1).contiguous(), flat,
             26, False)

@@ -19,6 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from sparsespatialsampling_tpu.ops import knn as jknn  # noqa: E402
+from sparsespatialsampling_torch import trace  # noqa: E402
 from sparsespatialsampling_torch.ops import knn as tknn  # noqa: E402
 from sparsespatialsampling_torch.ops import topk  # noqa: E402
 
@@ -180,3 +181,108 @@ def test_k_above_selection_limit_raises(monkeypatch, mode):
     # IDW sums of 300 terms in another order than the JAX einsum's
     np.testing.assert_allclose(t.predict(q, k), j.predict(q, k), rtol=1e-5,
                                atol=1e-6)
+
+
+def _build_cloud(name):
+    """Seeded clouds for the build's edge cases (a few thousand points)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "2d":
+        return _cloud(2, 5000)[0]
+    if name == "3d":
+        return _cloud(3, 4000)[0]
+    if name == "2d-dense-core":
+        # a dense core in a sparse box: the cell size shrinks over passes
+        return np.concatenate([rng.uniform(0, 1, (1000, 2)),
+                               rng.normal(0.5, 0.03, (1000, 2))])
+    if name == "3d-over-capacity":
+        # 90 copies of one point: a cell no shrink can split, above the
+        # capacity, so numpy's percentile picks C; equal codes leave the
+        # order to the sort's stability
+        return np.concatenate([rng.uniform(0, 1, (3000, 3)),
+                               np.full((90, 3), 0.3)])
+    if name == "2d-duplicates":
+        pts = rng.uniform(-1, 2, (1500, 2))
+        return np.concatenate([pts, pts[::-1], pts[::3]])
+    if name == "3d-flat-gridless":
+        # an axis of zero extent (the 1e-30 clamp) in the 3D order; too
+        # few points for a grid (a 3D grid over it overflows the cell
+        # count in both packages' plans)
+        pts = rng.uniform(0, 1, (800, 3))
+        pts[:, 2] = 0.25
+        return pts
+    if name == "2d-line":
+        # an axis of zero extent in the order and the plan
+        return np.stack([rng.uniform(0, 3, 4000), np.full(4000, -0.5)], 1)
+    return rng.uniform(0, 1, (3000, 4))     # no grid, the host's order
+
+
+BUILD_CLOUDS = ["2d", "3d", "2d-dense-core", "3d-over-capacity",
+                "2d-duplicates", "3d-flat-gridless", "2d-line", "4d"]
+
+
+@pytest.mark.parametrize("name", BUILD_CLOUDS)
+def test_build_matches_jax(monkeypatch, name):
+    """The port builds the order, the plan and the neighbour table on the
+    index's device (here the CPU route); every output is the JAX package's
+    host build bit for bit: the permutation, the padded points and norms,
+    the centre, the plan (h, C, dims, per-point cell ids, overflow), the
+    dilated width and the neighbour table.  A profiled build counts the
+    permutation's bytes read back and one pass per cell-count pass."""
+    monkeypatch.setattr(jknn.KNNIndex, "GRID_MIN_POINTS", 1000)
+    monkeypatch.setattr(tknn.KNNIndex, "GRID_MIN_POINTS", 1000)
+    pts = _build_cloud(name)
+    n, d = pts.shape
+    j = jknn.KNNIndex(pts)
+    trace.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        t = tknn.KNNIndex(pts, device="cpu")
+    spans = {r["name"]: r["counts"] for r in trace.records()}
+    trace.clear()
+    np.testing.assert_array_equal(t._shift, j._shift)
+    np.testing.assert_array_equal(t._perm, j._perm)
+    np.testing.assert_array_equal(t._perm_dev.numpy()[:n], j._perm)
+    np.testing.assert_array_equal(t._points.numpy(), np.asarray(j._points))
+    np.testing.assert_array_equal(t._points_sq.numpy(),
+                                  np.asarray(j._points_sq))
+    assert spans["knn.order"]["readback_bytes"] == n * 8
+    assert (t._grid is None) == (j._grid is None) == (
+        d not in (2, 3) or n < 1000)
+    if t._grid is None:
+        assert "knn.plan" not in spans
+        return
+
+    sorted_pts = j._points_host[j._perm]
+    jplan = jknn._plan_grid(sorted_pts, n, n, t.GRID_OCCUPANCY,
+                            t.GRID_CAPACITY, host_arrays=False,
+                            shrink_target=t.GRID_SHRINK_TARGET)
+    tplan = tknn._plan_grid(torch.from_numpy(sorted_pts), n,
+                            t.GRID_OCCUPANCY, t.GRID_CAPACITY,
+                            t.GRID_SHRINK_TARGET)
+    assert tplan["h"] == jplan["h"] and tplan["C"] == jplan["C"]
+    assert tplan["n_cells"] == jplan["n_cells"]
+    np.testing.assert_array_equal(tplan["dims"], jplan["dims"])
+    np.testing.assert_array_equal(tplan["origin"].numpy(), jplan["origin"])
+    np.testing.assert_array_equal(tplan["flat_ids"].numpy(),
+                                  jplan["flat_ids"])
+    np.testing.assert_array_equal(tplan["overflow"].numpy() > 0.5,
+                                  jplan["overflow"])
+    assert tknn._max_dilated_occupancy(
+        tplan["counts"], tplan["dims"], tplan["C"]) == \
+        jknn._max_dilated_occupancy(jplan)
+    assert spans["knn.plan"]["passes"] == tplan["passes"]
+    assert 1 <= tplan["passes"] <= 9
+    if name == "2d-dense-core":
+        assert tplan["passes"] >= 3
+    if name == "3d-over-capacity":
+        assert tplan["counts"].max() > t.GRID_CAPACITY
+        assert tplan["overflow"].sum() > 0
+
+    tg, jg = t._grid, j._grid
+    assert tg["C"] == jg["C"] and tg["_dil_keep"] == jg["_dil_keep"]
+    for key in ("cell_list", "overflow", "dims", "origin", "inv_h",
+                "dil_pts", "dil_cand", "dil_ovf"):
+        np.testing.assert_array_equal(tg[key].numpy(), np.asarray(jg[key]))
+    np.testing.assert_array_equal(
+        tknn._grid_neighbor_table(tg["dims"], tplan["n_cells"]).numpy(),
+        np.asarray(jg["_nb"]))

@@ -271,14 +271,19 @@ def test_knn_build_children_cover_it(profiled):
     records = profiled["records"]
     build, = [r for r in records if r["name"] == "knn.build"]
     kids = [r for r in records if r["parent"] == build["id"]]
-    # the values go up after the grid, outside its build transients
-    assert [r["name"] for r in kids] == ["knn.order", "knn.upload",
+    # the centred f64 cloud goes up first, the values after the grid,
+    # outside its build transients
+    assert [r["name"] for r in kids] == ["knn.upload", "knn.order",
                                          "knn.plan", "knn.layout",
                                          "knn.upload"]
     assert build["counts"]["points"] == 6000
     points, values = [r for r in kids if r["name"] == "knn.upload"]
-    assert points["counts"]["bytes"] > 6000 * 2 * 4
-    assert values["counts"]["bytes"] == 6001 * 4
+    assert points["counts"]["bytes"] == 6000 * 2 * 8
+    assert values["counts"]["bytes"] == 6000 * 4
+    order, plan = [r for r in kids if r["name"] in ("knn.order", "knn.plan")]
+    # the permutation comes back; each cell-count pass reads one maximum
+    assert order["counts"]["readback_bytes"] == 6000 * 8
+    assert 1 <= plan["counts"]["passes"] <= 9
 
 
 def test_the_same_run_unprofiled_records_nothing(monkeypatch):
