@@ -2,17 +2,26 @@
 jobs, the check against the reference, the metrics.
 
 Everything that belongs to one configuration, traffic mix, generator,
-metric or kernel bound is a file that this module finds by name:
-``configs/<config>.json``, ``traffic/<cell>.json`` (a cell is named after
-its traffic file, which names its configuration), ``gen/<generator>.py``,
-``metrics/<metric>.py`` and ``roofline/<kernel>.py``.  Which metrics a cell
-reports, and on how many cards it runs, ``BENCHMARK.json`` at the root of
-the checkout says.
+geometry kind, metric or kernel bound is a file that this module finds by
+name: ``configs/<config>.json``, ``traffic/<cell>.json`` (a cell is named
+after its traffic file, which names its configuration),
+``gen/<generator>.py``, ``geometry/<type>.py`` (the program's object of a
+geometry spec, ``make(spec, refine, min_refinement_level)``) with
+``ref/shapes/<type>.py`` (the reference's ``inside`` and ``bounds`` of
+it), ``metrics/<metric>.py`` and ``roofline/<kernel>.py``.  Which metrics
+a cell reports, and on how many cards it runs, ``BENCHMARK.json`` at the
+root of the checkout says.
+
+A traffic file holds ``config``, ``grids`` (each grid's settings over the
+configuration's), ``geometry_settings`` (per geometry name), ``export``,
+``export_batch`` (snapshots per ``interpolate`` call; without it one call
+takes them all), ``pool``, ``sample_jobs``, ``trace_jobs`` and ``limits``.
 
 A job is what one user's script does with one cloud: for each grid of the
 cell's sweep, ``SparseSpatialSampling(...)`` and
-``execute_grid_generation()``, then, where the cell exports,
-``ExportData(s3, ...).interpolate(...)`` of every snapshot; it ends when
+``execute_grid_generation()``, then, where the cell exports, one
+``ExportData(s3, ...)`` and its ``interpolate(...)`` of every snapshot,
+``export_batch`` at a time; it ends when
 the program's worker threads started during it have ended and the card has
 synchronised.  Its inputs are made before it starts, from the cell's pool
 of clouds in the order the seed draws (:meth:`Cell.cloud`).
@@ -33,6 +42,9 @@ HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 # top-level module names no run may import
 FORBIDDEN = ("jax", "jaxlib", "flax", "sparsespatialsampling_tpu")
+# where the program's geometry kinds are found, whatever the cell's root (as
+# ``ref.geometry.SHAPES`` for the reference's); a test may point it elsewhere
+GEOMETRY = HERE / "geometry"
 
 
 def load_json(path: Path) -> dict:
@@ -42,11 +54,16 @@ def load_json(path: Path) -> dict:
 
 def load_module(kind: str, name: str, root: Path = HERE):
     """``<root>/<kind>/<name>.py`` as a module."""
-    path = root / kind / f"{name}.py"
+    return load_file(root / kind / f"{name}.py", kind)
+
+
+def load_file(path: Path, kind: str):
+    """The module of ``path``, a file of ``kind``; a missing file is
+    refused by its name."""
     if not path.is_file():
-        raise FileNotFoundError(f"no {kind} named {name!r} ({path})")
+        raise FileNotFoundError(f"no {kind} named {path.stem!r} ({path})")
     spec = importlib.util.spec_from_file_location(
-        f"s3bench_{kind}_{name.replace('.', '_')}", path)
+        f"s3bench_{kind}_{path.stem.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -71,9 +88,17 @@ class Cell:
         self.config = load_json(root / "configs"
                                 / f"{self.traffic['config']}.json")
         self.gen = load_module("gen", self.config["generator"], root)
+        self.kinds = {g["type"]: load_file(GEOMETRY / f"{g['type']}.py",
+                                           "geometry")
+                      for g in self.config["geometries"]}
         base = self.config.get("settings", {})
         self.grids = [{**base, **g} for g in self.traffic["grids"]]
         self.export = bool(self.traffic.get("export", False))
+        batch = self.traffic.get("export_batch")
+        self.export_batch = None if batch is None else int(batch)
+        if self.export_batch is not None and self.export_batch < 1:
+            raise ValueError(f"export_batch of {name!r} must be at least 1, "
+                             f"got {batch!r}")
         self.n_snapshots = int(self.config.get("n_snapshots", 0))
         self.k = 8 if self.config["dims"] == 2 else 26
 
@@ -119,23 +144,12 @@ class Cell:
         return int(rng.integers(int(self.traffic.get("sample_jobs", 1))))
 
 
-def port_geometries(specs: list) -> list:
-    """The program's geometry objects of the specs."""
-    from sparsespatialsampling_torch import (CubeGeometry,
-                                             GeometryCoordinates2D)
-    out = []
-    for g in specs:
-        kw = {"refine": bool(g.get("refine", False)),
-              "min_refinement_level": g.get("min_refinement_level")}
-        if g["type"] == "cube":
-            out.append(CubeGeometry(g["name"], g["keep_inside"], g["lower"],
-                                    g["upper"], **kw))
-        elif g["type"] == "polygon":
-            out.append(GeometryCoordinates2D(g["name"], g["keep_inside"],
-                                             g["coordinates"], **kw))
-        else:
-            raise ValueError(f"unknown geometry type {g['type']!r}")
-    return out
+def port_geometries(specs: list, kinds: dict) -> list:
+    """The program's geometry objects of the specs, each made by its kind's
+    module (``Cell.kinds``)."""
+    return [kinds[g["type"]].make(g, bool(g.get("refine", False)),
+                                  g.get("min_refinement_level"))
+            for g in specs]
 
 
 def _sync(device) -> None:
@@ -165,7 +179,8 @@ def run_job(cell: Cell, inputs: dict, device, out_dir: Path,
             with span("s3bench::init"):
                 s3 = SparseSpatialSampling(
                     inputs["points"], inputs["metric"],
-                    port_geometries(cell.geometry_specs(inputs)),
+                    port_geometries(cell.geometry_specs(inputs),
+                                    cell.kinds),
                     save_path=str(out_dir), save_name=f"grid{g}",
                     device=device, **settings)
                 _sync(device)
@@ -181,14 +196,26 @@ def run_job(cell: Cell, inputs: dict, device, out_dir: Path,
                     info["t_geometry"])
             field = None
             if cell.export:
+                snaps = inputs["snapshots"]
+                step = cell.export_batch or snaps.shape[-1]
                 t2 = perf_counter()
                 with span("s3bench::export"):
                     exp = ExportData(s3, write_times=times, device=device)
-                    field = exp.interpolate(inputs["points"],
-                                            inputs["snapshots"])
+                    # a batch's field is held only for the checked job;
+                    # otherwise it goes as the next comes
+                    parts = []
+                    for lo in range(0, snaps.shape[-1], step):
+                        part = exp.interpolate(inputs["points"],
+                                               snaps[:, :, lo:lo + step])
+                        if keep:
+                            parts.append(part)
                     _sync(device)
                 rec["export_s"] += perf_counter() - t2
-                del exp
+                del exp, part
+                if keep:
+                    field = (parts[0] if len(parts) == 1
+                             else np.concatenate(parts, axis=-1))
+                del parts
             if keep:
                 rec["grids"].append({
                     "levels": np.asarray(s3.levels), "centers": s3.centers,

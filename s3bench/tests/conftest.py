@@ -20,6 +20,20 @@ def card():
     return "cuda"
 
 
+def boundary_points(rng, lo, hi, n):
+    """Points around the box ``[lo, hi]``, about half of their coordinates
+    snapped to a bound: on its faces, edges and vertices (its corners
+    too)."""
+    import numpy as np
+    d = len(lo)
+    p = rng.uniform(lo - 0.25, hi + 0.25, size=(n, d))
+    snap = rng.integers(0, 4, size=(n, d))
+    p = np.where(snap == 1, lo, np.where(snap == 2, hi, p))
+    corners = np.array([[(hi if (c >> a) & 1 else lo)[a] for a in range(d)]
+                        for c in range(2 ** d)])
+    return np.concatenate([p, corners])
+
+
 def tiny_root(root: Path) -> Path:
     """A copy of the benchmark's generators, metrics and bounds under
     ``root`` with two tiny cells: ``t3.sweep`` (the 3D cloud at 3,000

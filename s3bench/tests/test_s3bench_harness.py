@@ -2,6 +2,7 @@
 and the bound arithmetic."""
 import json
 import math
+import shutil
 import textwrap
 
 import numpy as np
@@ -12,39 +13,53 @@ import harness
 import tracing
 
 
+RING2D = textwrap.dedent('''
+    import numpy as np
+
+    def make(config, rng, device):
+        xy = rng.uniform(config["box"][0], config["box"][1],
+                         size=(config["n_points"], 2))
+        r = np.hypot(xy[:, 0], xy[:, 1])
+        return {"points": xy, "metric": np.exp(-(r - 0.5) ** 2 / 0.01)}
+''')
+
+DOMAIN2D = {"type": "cube", "name": "domain", "keep_inside": True,
+            "lower": [-1, -1], "upper": [1, 1]}
+
+
+def _ring2d_cell(root, name: str, geometries: list):
+    """A 2D cell ``<name>.cold`` on the ring generator, one grid."""
+    (root / "gen/ring2d.py").write_text(RING2D)
+    (root / f"configs/{name}.json").write_text(json.dumps({
+        "name": name, "generator": "ring2d", "dims": 2,
+        "n_points": 2000, "box": [[-1, -1], [1, 1]],
+        "geometries": geometries,
+        "settings": {"uniform_levels": 3, "n_cells_max": 300}}))
+    (root / f"traffic/{name}.cold.json").write_text(json.dumps({
+        "config": name, "grids": [{}], "export": False, "pool": 3,
+        "limits": {"cells_unmatched_pct": 0.0, "metric_trace_gap": 1e-5}}))
+    return harness.Cell(f"{name}.cold", root)
+
+
+def _job_and_check(cell, root):
+    inputs = cell.inputs(5, 0, "cpu")
+    rec = harness.run_job(cell, inputs, "cpu", root / "out", keep=True)
+    numbers = harness.check(cell, inputs, rec["grids"], "cpu")
+    return rec, numbers
+
+
 def test_discovery_of_added_files(tiny):
     """A configuration, a cell, a generator, a metric and a kernel bound
     added as files only are found by name and run."""
-    (tiny / "gen/ring2d.py").write_text(textwrap.dedent('''
-        import numpy as np
-
-        def make(config, rng, device):
-            xy = rng.uniform(config["box"][0], config["box"][1],
-                             size=(config["n_points"], 2))
-            r = np.hypot(xy[:, 0], xy[:, 1])
-            return {"points": xy, "metric": np.exp(-(r - 0.5) ** 2 / 0.01)}
-    '''))
-    (tiny / "configs/ring2d.json").write_text(json.dumps({
-        "name": "ring2d", "generator": "ring2d", "dims": 2,
-        "n_points": 2000, "box": [[-1, -1], [1, 1]],
-        "geometries": [{"type": "cube", "name": "domain",
-                        "keep_inside": True, "lower": [-1, -1],
-                        "upper": [1, 1]}],
-        "settings": {"uniform_levels": 3, "n_cells_max": 300}}))
-    (tiny / "traffic/ring2d.cold.json").write_text(json.dumps({
-        "config": "ring2d", "grids": [{}], "export": False, "pool": 3,
-        "limits": {"cells_unmatched_pct": 0.0, "metric_trace_gap": 1e-5}}))
+    cell = _ring2d_cell(tiny, "ring2d", [DOMAIN2D])
     (tiny / "metrics/cells_per_s.py").write_text(textwrap.dedent('''
         def read(run):
             return 300 / (sum(j["wall"] for j in run.jobs) / len(run.jobs))
     '''))
     (tiny / "roofline/extra_kernel.py").write_text(
         "MODULE = 'x'\nENTRIES = ()\nKERNEL = 'extra'\n")
-    cell = harness.Cell("ring2d.cold", tiny)
-    inputs = cell.inputs(5, 0, "cpu")
-    rec = harness.run_job(cell, inputs, "cpu", tiny / "out", keep=True)
-    ok, shown = harness.verdict(harness.check(cell, inputs, rec["grids"],
-                                              "cpu"), cell.traffic["limits"])
+    rec, numbers = _job_and_check(cell, tiny)
+    ok, shown = harness.verdict(numbers, cell.traffic["limits"])
     assert ok, shown
     run = harness.Run(cell, [rec], 1.0, 0)
     got = harness.read_metrics(run, [{"name": "cells_per_s", "unit": "1/s"},
@@ -53,11 +68,105 @@ def test_discovery_of_added_files(tiny):
     assert "extra_kernel" in tracing.roofline_modules(tiny)
 
 
+def test_a_geometry_kind_added_as_files(tiny, tmp_path, monkeypatch):
+    """A geometry kind added as two files, the program's object in the
+    harness's search directory and the reference's inside test in the
+    reference's, runs a cell through the job and the check with no cell
+    apart."""
+    import ref.geometry
+    kinds = tmp_path / "geometry"
+    shutil.copytree(harness.HERE / "geometry", kinds)
+    monkeypatch.setattr(harness, "GEOMETRY", kinds)
+    (kinds / "disc.py").write_text(textwrap.dedent('''
+        def make(spec, refine, min_refinement_level):
+            from sparsespatialsampling_torch import SphereGeometry
+            return SphereGeometry(spec["name"], spec["keep_inside"],
+                                  spec["center"], spec["radius"],
+                                  refine=refine,
+                                  min_refinement_level=min_refinement_level)
+    '''))
+    shapes = tmp_path / "shapes"
+    shutil.copytree(harness.HERE / "ref/shapes", shapes)
+    (shapes / "disc.py").write_text(textwrap.dedent('''
+        import numpy as np
+        import torch
+
+        def bounds(spec):
+            c = np.asarray(spec["center"], float)
+            return c - spec["radius"], c + spec["radius"]
+
+        def inside(spec, p):
+            c = torch.as_tensor(spec["center"], dtype=p.dtype,
+                                device=p.device)
+            return ((p - c) ** 2).sum(-1) <= spec["radius"] ** 2
+    '''))
+    monkeypatch.setattr(ref.geometry, "SHAPES", shapes)
+    # dyadic centre and radius: both sides' squares of lattice nodes are
+    # exact, so a node on the circle is inside on both
+    disc = {"type": "disc", "name": "hole", "keep_inside": False,
+            "center": [0.25, -0.125], "radius": 0.375, "refine": True,
+            "min_refinement_level": 6}
+    cell = _ring2d_cell(tiny, "disc2d", [DOMAIN2D, disc])
+    assert set(cell.kinds) == {"cube", "disc"}
+    rec, numbers = _job_and_check(cell, tiny)
+    assert numbers["cells_unmatched_pct"] == 0.0
+    ok, shown = harness.verdict(numbers, cell.traffic["limits"])
+    assert ok, shown
+    # the obstacle took away every cell wholly inside it and refined its
+    # surface
+    levels = rec["grids"][0]["levels"].ravel()
+    assert levels.max() == 6
+    centers = np.asarray(rec["grids"][0]["centers"])
+    half_diagonal = 2.0 / 2.0 ** levels / np.sqrt(2)
+    assert (np.hypot(centers[:, 0] - 0.25, centers[:, 1] + 0.125)
+            > 0.375 - half_diagonal).all()
+
+
 def test_unknown_names_are_refused(tiny):
+    import ref.geometry
     with pytest.raises(FileNotFoundError):
         harness.Cell("nothing.here", tiny)
     with pytest.raises(FileNotFoundError):
         harness.load_module("metrics", "no_such_metric", tiny)
+    hexagon = {**DOMAIN2D, "type": "hexagon"}
+    with pytest.raises(FileNotFoundError, match="hexagon.py"):
+        _ring2d_cell(tiny, "hex2d", [hexagon])
+    with pytest.raises(FileNotFoundError, match="hexagon.py"):
+        ref.geometry.width_and_center(hexagon)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_export_batches_give_the_one_call_field(tiny, batch):
+    """``export_batch`` snapshots per ``interpolate`` call (6 snapshots: six
+    calls, or 4 and 2) give the field of one call, bitwise, and the export's
+    metrics are read from the batched job."""
+    from sparsespatialsampling_torch import trace
+    one = harness.Cell("t2.sweep", tiny)
+    traffic = {**one.traffic, "export_batch": batch}
+    (tiny / "traffic/t2.batched.json").write_text(json.dumps(traffic))
+    cell = harness.Cell("t2.batched", tiny)
+    assert cell.export_batch == batch and one.export_batch is None
+    inputs = one.inputs(2 ** 32 + 9, 0, "cpu")
+    want = harness.run_job(one, inputs, "cpu", tiny / "one", keep=True)
+    trace.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = harness.run_job(cell, inputs, "cpu", tiny / "batched",
+                              keep=True, traced=True)
+    products = [r for r in trace.records() if r["name"] == "export.product"]
+    assert len(products) == len(cell.grids) * -(-one.n_snapshots // batch)
+    for a, b in zip(want["grids"], got["grids"]):
+        np.testing.assert_array_equal(a["levels"], b["levels"])
+        assert b["field"].shape == (len(b["levels"]), one.n_snapshots)
+        assert b["field"].dtype == a["field"].dtype
+        np.testing.assert_array_equal(a["field"], b["field"])
+    run = harness.Run(cell, [got], 1.0, 0)
+    read = harness.read_metrics(run, [{"name": "export_s", "unit": "s"},
+                                      {"name": "export_product_s",
+                                       "unit": "s"}])
+    trace.clear()
+    assert set(read) == {"export_s", "export_product_s"}
+    assert read["export_s"]["value"] > read["export_product_s"]["value"] > 0
 
 
 @pytest.mark.parametrize("name", ["large3d", "oat15"])

@@ -11,10 +11,9 @@ import harness
 S3BENCH = harness.HERE
 
 
-def _imports(path: Path) -> set:
-    tree = ast.parse(path.read_text())
+def _names(nodes) -> set:
     names = set()
-    for node in ast.walk(tree):
+    for node in nodes:
         if isinstance(node, ast.Import):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -22,12 +21,41 @@ def _imports(path: Path) -> set:
     return names
 
 
+def _imports(path: Path) -> set:
+    return _names(ast.walk(ast.parse(path.read_text())))
+
+
+def _module_level_imports(path: Path) -> set:
+    """The imports of ``path`` outside any function's body."""
+    def walk(node):
+        yield node
+        for child in ast.iter_child_nodes(node):
+            if not isinstance(child, (ast.FunctionDef,
+                                      ast.AsyncFunctionDef, ast.Lambda)):
+                yield from walk(child)
+    return _names(walk(ast.parse(path.read_text())))
+
+
 def test_reference_imports_neither_jax_nor_the_program():
-    for path in sorted((S3BENCH / "ref").glob("*.py")):
+    paths = sorted((S3BENCH / "ref").rglob("*.py"))
+    assert S3BENCH / "ref/shapes/cube.py" in paths
+    for path in paths:
         got = _imports(path)
         assert not got & {"jax", "jaxlib", "flax",
                           "sparsespatialsampling_tpu",
                           "sparsespatialsampling_torch"}, (path, got)
+
+
+def test_geometry_kinds_import_the_program_inside_make():
+    """The program's geometry kinds import it where they make an object,
+    never when they are loaded."""
+    paths = sorted((S3BENCH / "geometry").glob("*.py"))
+    assert S3BENCH / "geometry/cube.py" in paths
+    for path in paths:
+        assert "sparsespatialsampling_torch" in _imports(path), path
+        got = _module_level_imports(path)
+        assert not got & {"sparsespatialsampling_torch",
+                          "sparsespatialsampling_tpu"}, (path, got)
 
 
 def test_no_file_of_the_benchmark_imports_jax():

@@ -145,3 +145,55 @@ def test_near_tie_stops_give_each_decision(tiny):
     # every alternative is a prefix of the reference's own run
     for g in grids[1:]:
         assert g.trace == grids[0].trace[:len(g.trace)]
+
+
+# a geometry kind's cases are a file of its own, ``kinds/<type>.py``, whose
+# ``cases(rng)`` gives specs with seeded points on and around them
+KINDS = sorted(p.stem for p in (harness.HERE / "ref/shapes").glob("*.py"))
+
+
+def test_every_kind_has_both_sides_and_a_case():
+    for sub in ("geometry", "tests/kinds"):
+        assert KINDS == sorted(p.stem for p in
+                               (harness.HERE / sub).glob("*.py")), sub
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_reference_inside_is_the_program_s(kind):
+    """On seeded points, on the shapes' faces, edges and vertices too, the
+    reference's inside test is the program object's ``mask_points``, and its
+    cell flags are ``check_cells``, in both modes (removal and surface
+    proximity), on lattice cells around the shape."""
+    import ref.geometry
+    make = harness.load_module("geometry", kind).make
+    rng = np.random.default_rng(list(b"s3bench") + [KINDS.index(kind)])
+    cases = harness.load_module("kinds", kind, harness.HERE / "tests").cases
+    for spec, pts, near in cases(rng):
+        obj = make(spec, False, None)
+        p = torch.from_numpy(pts)
+        got = ref.geometry.kind(spec).inside(spec, p).numpy()
+        want = obj.mask_points(p).numpy()
+        apart = np.nonzero(got != want)[0]
+        if near is not None and apart.size:
+            # only where the kind's case says the two may round apart: on
+            # its boundary, and few
+            assert apart.size <= 0.01 * len(pts)
+            assert near(pts[apart]).max() < 1e-15
+            keep = np.ones(len(pts), dtype=bool)
+            keep[apart] = False
+            got, want = got[keep], want[keep]
+        np.testing.assert_array_equal(got, want)
+        lo, hi = ref.geometry.kind(spec).bounds(spec)
+        d = len(lo)
+        h = float(np.max(hi - lo)) / 32
+        coords = rng.integers(-4, 37, size=(3000, d))
+        offsets = np.array([[(c >> a) & 1 for a in range(d)]
+                            for c in range(2 ** d)])
+        nodes = torch.from_numpy(
+            lo + (coords[:, None, :] + offsets[None]) * h)
+        for surface in (False, True):
+            got = ref.geometry.cell_flags(spec, nodes, surface)
+            want = obj.check_cells(nodes, surface)
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+            assert 0 < int(got.sum()) < len(got), (spec["keep_inside"],
+                                                   surface)
