@@ -1620,8 +1620,11 @@ class SamplingTree:
                 if loop_ok and gmin + 1 <= _F32_LEVEL_CAP:
                     with trace.span("engine.geometry_window",
                                     self.device) as sp:
+                        entry = int(surface.size)
                         surface, gmin2, cause = self._device_geometry_call(
                             g, surface, gmin, gmax)
+                        sp.count(surface=entry, levels=gmin2 - gmin,
+                                 k_geo=self._geo_loop_shapes[id(g)][0])
                     split["t_window"] += sp.seconds
                     if gmin2 > gmin:
                         logger.info(f"\tDevice loop refined levels "
@@ -1658,6 +1661,9 @@ class SamplingTree:
                     invalid, surf = self._geo_refine_flags(g, children)
                     surface = children[~invalid & surf]
                     dead = children[invalid]
+                    sp.count(cells=int(to_refine.size),
+                             children=int(children.size),
+                             removed=int(dead.size), **{cause: 1})
                     self._alive[dead] = False
                     self._gain[dead] = 0.0
                     gmin += 1

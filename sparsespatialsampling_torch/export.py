@@ -327,6 +327,8 @@ class ExportData:
             if not self._initialized_weights:
                 with trace.span("export.weights", self.device) as sp:
                     self._build_knn_cache(coordinates)
+                    if self.timings["prefetch"] != "off":
+                        sp.count(**{self.timings["prefetch"]: 1})
                 self.timings["t_weights"] += sp.seconds
 
             if not self._interpolated_metric:
@@ -354,6 +356,8 @@ class ExportData:
                 self._interpolated_fields.vertices = self._interpolate(
                     self._w_vertices, self._idx_vertices, self._op_vertices,
                     data, chunk_size)
+            total.count(snapshots=int(data.shape[-1]),
+                        bytes=4 * int(np.prod(data.shape)))
         self._field_s += total.seconds
         return self._interpolated_fields.centers
 
